@@ -25,26 +25,19 @@
 // shared memory and nothing is allocated. Closing the gap to the DRAM bound
 // (reusing corner rows across neighbouring queries) is later work.
 
-#include <cuda_runtime.h>
+#include "ms_deform_attn_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 16;
-constexpr int kMaxDChunks = 4;  // D <= 128, in steps of one warp
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
+using msda::kFull;
+using msda::kMaxDChunks;
+using msda::kWarpsPerBlock;
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ms_deform_attn_fwd_kernel(const float* __restrict__ value,
                           const float* __restrict__ loc,
                           const float* __restrict__ attn,
-                          float* __restrict__ out, Levels lv, int S, int M,
+                          float* __restrict__ out, msda::Levels lv, int S, int M,
                           int D, int Q, int P, int K, long long n_warps) {
   const int lane = threadIdx.x & 31;
   const long long warp =
@@ -67,27 +60,15 @@ ms_deform_attn_fwd_kernel(const float* __restrict__ value,
     float wt[4] = {0.f, 0.f, 0.f, 0.f};
     if (k < K) {
       const int l = k / P;
-      const int H = lv.h[l], W = lv.w[l], start = lv.start[l];
-      // loc * size - 0.5 with no fused multiply-add, as the plain version
-      const float x = __fsub_rn(__fmul_rn(__ldg(loc_w + 2 * k), (float)W), 0.5f);
-      const float y =
-          __fsub_rn(__fmul_rn(__ldg(loc_w + 2 * k + 1), (float)H), 0.5f);
-      const float x0 = floorf(x), y0 = floorf(y);
-      const float lx = __fsub_rn(x, x0), ly = __fsub_rn(y, y0);
+      const msda::Corners cs = msda::bilinear_corners(
+          __ldg(loc_w + 2 * k), __ldg(loc_w + 2 * k + 1), lv.h[l], lv.w[l],
+          lv.start[l]);
       const float a = __ldg(attn_w + k);
-      // validity in float, so that huge or NaN locations never reach an
-      // int conversion: NaN compares false and leaves every corner out
-      const bool vx0 = x0 >= 0.f && x0 <= (float)(W - 1);
-      const bool vx1 = x0 >= -1.f && x0 <= (float)(W - 2);
-      const bool vy0 = y0 >= 0.f && y0 <= (float)(H - 1);
-      const bool vy1 = y0 >= -1.f && y0 <= (float)(H - 2);
-      const int ix = (int)fminf(fmaxf(x0, -1.f), (float)W);
-      const int iy = (int)fminf(fmaxf(y0, -1.f), (float)H);
-      const float hx = 1.f - lx, hy = 1.f - ly;
-      if (vy0 && vx0) { idx[0] = start + iy * W + ix;           wt[0] = hx * hy * a; }
-      if (vy0 && vx1) { idx[1] = start + iy * W + ix + 1;       wt[1] = lx * hy * a; }
-      if (vy1 && vx0) { idx[2] = start + (iy + 1) * W + ix;     wt[2] = hx * ly * a; }
-      if (vy1 && vx1) { idx[3] = start + (iy + 1) * W + ix + 1; wt[3] = lx * ly * a; }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        idx[c] = cs.idx[c];
+        wt[c] = cs.w[c] * a;
+      }
     }
     const int kn = min(32, K - k0);
     for (int j = 0; j < kn; ++j) {
@@ -118,18 +99,9 @@ extern "C" int ms_deform_attn_fwd(const float* value, const float* loc,
                                   const float* attn, float* out,
                                   const int* shapes, int B, int S, int M,
                                   int D, int Q, int L, int P, void* stream) {
-  if (L < 1 || L > kMaxLevels || P < 1 || D < 32 || D % 32 != 0 ||
-      D > 32 * kMaxDChunks)
+  msda::Levels lv;
+  if (!msda::make_levels(shapes, L, P, D, S, &lv))
     return (int)cudaErrorInvalidValue;
-  Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
   const long long n_warps = (long long)B * Q * M;
   if (n_warps == 0) return 0;
   const long long blocks = (n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock;

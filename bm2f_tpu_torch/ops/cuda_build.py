@@ -4,7 +4,8 @@
 Each source under `bm2f_tpu_torch/csrc/` exports plain C functions (no
 PyTorch headers), so one `nvcc` call per file takes seconds. Libraries go to
 `bm2f_tpu_torch/_build/` (listed in `.gitignore`), named by a hash of the
-source and flags, and are built at first use, never at import.
+source, the shared headers and the flags, and are built at first use,
+never at import.
 """
 
 from __future__ import annotations
@@ -40,8 +41,14 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (CSRC_DIR / source).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Named by a hash of the source, every header under `csrc/` (a source
+    may include any of them) and the flags, so that an edit to a shared
+    header never loads a stale library."""
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{tag}.so"
 
 

@@ -15,7 +15,21 @@ Phases, each printing its own line:
      seeded random weights answers 3 requests; every kernel's launch count
      is set to 0 just before and read just after;
   6. forward parity on the card: kernel path against the plain path;
-  7. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
+  7. K2 (the deformable-attention backward) against its plain version on
+     the card: edge cases and the train-path shapes, each run twice (d_loc
+     and d_attn bitwise equal, d_value within the atomics' tolerance);
+  8. K2 and K1 timing at the train-path shapes beside the plain versions
+     and the bound;
+  9. gradient parity on the card: `Trainer` on `coco_instance_r50` at full
+     width, at its seeded init, one B=1 1024x1024 step's loss and
+     gradients through the kernels against the plain path, on the same
+     random points;
+ 10. the train path: that trainer's step at B=2, 1024x1024, one warm-up
+     step and 3 timed steps with every kernel's launch count set to 0 just
+     before and read just after; finite losses, nonzero gradients of every
+     encoder layer's deformable projections, the step's time split by
+     stage and peak memory;
+ 11. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
 
 Any failure raises and the script exits non-zero. It imports nothing of JAX
@@ -45,6 +59,19 @@ PEAK_F32_FLOP_PER_S = 67e12
 MAIN_SHAPES = ((25, 25), (50, 50), (100, 100))
 M, D, P = 8, 32, 4
 REQUESTS = ((800, 800), (480, 640), (800, 1088))
+# the train path: LSJ crops of 1024x1024 (levels 32x32, 64x64, 128x128),
+# the per-GPU share of the reference's 16-image batch, 8 targets per image
+CONFIG = "coco_instance_r50"
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_INSTANCES, TRAIN_STEPS = 1024, 2, 8, 3
+TRAIN_SHAPES = tuple((TRAIN_SIZE // s, TRAIN_SIZE // s) for s in (32, 16, 8))
+# K2's tolerances against its plain version (tests/test_ops.py:176-178)
+GRAD_TOL = {"d_value": dict(rtol=1e-4, atol=1e-5),
+            "d_loc": dict(rtol=1e-3, atol=1e-4),
+            "d_attn": dict(rtol=1e-4, atol=1e-5)}
+# d_value between two runs of K2: its atomic sums (up to ~1e3 terms a pixel
+# at the edge cases) run in another order each time, so an element may move
+# by a few f32 ulps of the largest sum: rtol 1e-5, atol 1e-6 x max |d_value|
+REPEAT_RTOL, REPEAT_ATOL_OF_MAX = 1e-5, 1e-6
 
 
 def log(phase: str, **fields) -> None:
@@ -92,13 +119,46 @@ def deform_inputs(B, shapes, Q, gen, dev, loc_range=None):
     return value, loc.contiguous().to(dev), attn.view(B, Q, M, L, P).to(dev)
 
 
-def deform_bound_ms(B, shapes, Q, L):
+def valid_corners(shapes, loc) -> int:
+    """Bilinear corners inside their level, over all samples of `loc`: the
+    work the kernels do for this data (a corner outside is skipped)."""
+    n = 0
+    for lid, (H, W) in enumerate(shapes):
+        x0 = torch.floor(loc[:, :, :, lid, :, 0] * W - 0.5)
+        y0 = torch.floor(loc[:, :, :, lid, :, 1] * H - 0.5)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                n += int(((x0 + dx >= 0) & (x0 + dx < W) & (y0 + dy >= 0)
+                          & (y0 + dy < H)).sum())
+    return n
+
+
+def bound_ms(n_bytes: int, flops: int):
+    """(least time in ms, what bounds it): bytes over the HBM rate against
+    operations over the f32 rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def deform_bound_ms(B, shapes, Q, L, loc):
+    """K1: reads value, loc, attn once and writes the output once; one FMA
+    per valid corner and channel."""
     S = sum(h * w for h, w in shapes)
     n_bytes = 4 * (B * S * M * D + B * Q * M * L * P * 2 + B * Q * M * L * P
                    + B * Q * M * D)
-    flops = 2 * 4 * B * Q * M * L * P * D  # one FMA per corner and channel
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes, flops
+    flops = 2 * D * valid_corners(shapes, loc)
+    return (*bound_ms(n_bytes, flops), n_bytes, flops)
+
+
+def deform_bwd_bound_ms(B, shapes, Q, L, loc):
+    """K2: reads value, loc, attn and grad_out once and writes d_value,
+    d_loc and d_attn once; per valid corner and channel one FMA for the dot
+    product and a multiply and an add into d_value."""
+    S = sum(h * w for h, w in shapes)
+    n_bytes = 4 * 2 * (B * S * M * D + B * Q * M * L * P * 2 + B * Q * M * L * P) \
+        + 4 * B * Q * M * D
+    flops = 4 * D * valid_corners(shapes, loc)
+    return (*bound_ms(n_bytes, flops), n_bytes, flops)
 
 
 def grid_sample_composite(value, shapes, loc, attn):
@@ -118,6 +178,183 @@ def grid_sample_composite(value, shapes, loc, attn):
                           align_corners=False).reshape(B, M_, D_, Q, P)
         out += (s * attn[:, :, :, lid].permute(0, 2, 1, 3)[:, :, None]).sum(-1)
     return out.permute(0, 3, 1, 2).reshape(B, Q, M_ * D_)
+
+
+def check_k2(dev, gen):
+    """Phase 7: K2 against the closed-form plain backward on K1's edge cases
+    and the train-path shapes, twice each. Returns (max abs error over the
+    three gradients at the train shapes, the train-shape inputs)."""
+    from bm2f_tpu_torch.ops.deform_attn import (
+        ms_deform_attn_bwd_cuda,
+        ms_deform_attn_bwd_plain,
+    )
+
+    S_train = sum(h * w for h, w in TRAIN_SHAPES)
+    cases = [
+        (2, ((1, 7), (5, 1), (4, 6)), 777, (-0.2, 1.2)),
+        (1, ((1, 1), (3, 9)), 1001, (-0.2, 1.2)),
+        (TRAIN_BATCH, TRAIN_SHAPES, S_train, None),
+    ]
+    for B, shapes, Q, rng in cases:
+        v, loc, attn = deform_inputs(B, shapes, Q, gen, dev, rng)
+        g = torch.randn(B, Q, M * D, generator=gen).to(dev)
+        first = ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g)
+        second = ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g)
+        torch.cuda.synchronize()
+        want = ms_deform_attn_bwd_plain(v, shapes, loc, attn, g)
+        errs = {}
+        for name, a, b, w in zip(GRAD_TOL, first, second, want):
+            torch.testing.assert_close(a, w, msg=name, **GRAD_TOL[name])
+            errs[name] = (a - w).abs().max().item()
+            if name == "d_value":
+                torch.testing.assert_close(
+                    a, b, rtol=REPEAT_RTOL, atol=REPEAT_ATOL_OF_MAX * w.abs().max().item())
+                errs["d_value_repeat"] = (a - b).abs().max().item()
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{name} differs between two runs of K2")
+        log("check_bwd", case="edge" if rng else "train", B=B, shapes=shapes, Q=Q,
+            **{f"{k}_max_abs_err": f"{e:.3e}" for k, e in errs.items()})
+    return max(errs[k] for k in GRAD_TOL), (v, loc, attn, g)
+
+
+def time_k2(inputs):
+    """Phase 8: K2 and K1 at the train-path shapes (CUDA events, warm), the
+    plain versions, the bound, and autograd of the grid_sample composite
+    as a yardstick only."""
+    from bm2f_tpu_torch.ops.deform_attn import (
+        ms_deform_attn_bwd_cuda,
+        ms_deform_attn_bwd_plain,
+        ms_deform_attn_cuda,
+        ms_deform_attn_plain,
+    )
+
+    v, loc, attn, g = inputs
+    B, Q, L = v.shape[0], loc.shape[1], len(TRAIN_SHAPES)
+    k_ms = cuda_ms(lambda: ms_deform_attn_bwd_cuda(v, TRAIN_SHAPES, loc, attn, g), 20)
+    p_ms = cuda_ms(lambda: ms_deform_attn_bwd_plain(v, TRAIN_SHAPES, loc, attn, g), 3)
+    leaves = [t.clone().requires_grad_(True) for t in (v, loc, attn)]
+    out = grid_sample_composite(leaves[0], TRAIN_SHAPES, leaves[1], leaves[2])
+    gs_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 3)
+    del out, leaves
+    bound, by, n_bytes, flops = deform_bwd_bound_ms(B, TRAIN_SHAPES, Q, L, loc)
+    log("time", kernel="ms_deform_attn_bwd", B=B, ms=f"{k_ms:.4f}",
+        plain_ms=f"{p_ms:.4f}", grid_sample_composite_bwd_ms=f"{gs_ms:.4f}",
+        bound_ms=f"{bound:.4f}", bound_by=by, bytes=n_bytes, flops=flops,
+        zeroing_bytes=4 * v.numel(), share_of_bound=f"{bound / k_ms:.3f}")
+    f_ms = cuda_ms(lambda: ms_deform_attn_cuda(v, TRAIN_SHAPES, loc, attn), 20)
+    fp_ms = cuda_ms(lambda: ms_deform_attn_plain(v, TRAIN_SHAPES, loc, attn), 3)
+    f_bound, f_by, f_bytes, f_flops = deform_bound_ms(B, TRAIN_SHAPES, Q, L, loc)
+    log("time", kernel="ms_deform_attn_fwd", B=B, shapes="train", ms=f"{f_ms:.4f}",
+        plain_ms=f"{fp_ms:.4f}", bound_ms=f"{f_bound:.4f}", bound_by=f_by,
+        bytes=f_bytes, flops=f_flops, share_of_bound=f"{f_bound / f_ms:.3f}")
+    return k_ms, p_ms, bound, by
+
+
+def make_trainer(dev):
+    """The full-width trainer at its seeded init, with the deformable
+    projections perturbed (general sampling locations, not a grid)."""
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(get_config(CONFIG), device=dev, seed=0)
+    perturb_deformable(trainer.model)
+    return trainer
+
+
+def train_path(trainer, dev):
+    """Phase 10: the trainer's step at full width. Returns the launch counts
+    of K1 and K2 over the timed steps."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+    from bm2f_tpu_torch.train.trainer import StageTimer, synthetic_batch
+
+    t0 = time.perf_counter()
+    batch = synthetic_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_INSTANCES, seed=0,
+                            device=dev)
+    trainer.step(batch)  # warm-up (cuDNN algorithm choice), not counted
+    torch.cuda.synchronize()
+    log("train_setup", config=CONFIG, batch=TRAIN_BATCH, size=TRAIN_SIZE,
+        instances=TRAIN_INSTANCES, seconds=f"{time.perf_counter() - t0:.2f}")
+    torch.cuda.reset_peak_memory_stats()
+
+    timer = StageTimer(dev)
+    ms_deform_attn_cuda.launches = ms_deform_attn_bwd_cuda.launches = 0
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        timer.start()
+        t = time.perf_counter()
+        metrics = {k: v.item() for k, v in trainer.step(batch, mark=timer).items()}
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"step {i}: non-finite {bad}")
+        log("train_step", step=i, total_loss=f"{metrics['total_loss']:.4f}",
+            loss_ce=f"{metrics['loss_ce']:.4f}", loss_mask=f"{metrics['loss_mask']:.4f}",
+            loss_dice=f"{metrics['loss_dice']:.4f}",
+            grad_norm=f"{metrics['grad_norm']:.4f}", step_ms=f"{step_ms[-1]:.2f}")
+    launches = (ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches)
+    n_layers = len(trainer.model.sem_seg_head.pixel_decoder.transformer.encoder.layers)
+    if launches != (n_layers * TRAIN_STEPS,) * 2:
+        raise AssertionError(f"K1, K2 launched {launches} times in {TRAIN_STEPS} "
+                             f"steps, expected {n_layers * TRAIN_STEPS} each")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the gradient reaches every deformable projection through K2
+    grads = {}
+    for i, layer in enumerate(trainer.model.sem_seg_head.pixel_decoder.transformer.encoder.layers):
+        for name in ("value_proj", "sampling_offsets", "attention_weights"):
+            w = getattr(layer.self_attn, name).weight.grad
+            grads[f"{i}.{name}"] = 0.0 if w is None else w.abs().sum().item()
+    zero = [k for k, v in grads.items() if not v > 0]
+    if zero:
+        raise AssertionError(f"no gradient reached encoder projections {zero}")
+    log("train_grads", min_abs_sum=f"{min(grads.values()):.3e}",
+        **{k.replace(".", "_"): f"{v:.3e}" for k, v in grads.items() if k.startswith("0.")})
+    log("train_main", k1_launches=launches[0], k2_launches=launches[1],
+        step_ms_mean=f"{sum(step_ms) / len(step_ms):.2f}",
+        peak_mem_gib=f"{peak:.2f}")
+    log("train_stages", **{k: f"{v / TRAIN_STEPS:.2f}ms" for k, v in timer.ms.items()})
+    return launches
+
+
+def grad_parity(trainer, dev):
+    """Phase 9: one B=1 step's loss and every parameter's gradient through
+    K1/K2 against the plain path, on the same random points, at the seeded
+    init (after steps whose d_value sums ran in atomic order the weights
+    differ from run to run). Gradients agree within a norm-relative 1e-3: a
+    near-tie in the importance top-k can swap one sample point, and the
+    sampling-offset gradients sum f32 differences of neighbouring corners
+    in another order on each path (PERF.md)."""
+    from bm2f_tpu_torch.losses.criterion import draw_points
+    from bm2f_tpu_torch.train.trainer import synthetic_batch
+
+    batch = synthetic_batch(1, TRAIN_SIZE, TRAIN_INSTANCES, seed=1, device=dev)
+    n_layers = trainer.cfg.model.decoder.dec_layers + 1
+    points = draw_points(trainer.ccfg, n_layers, 1,
+                         torch.Generator(device=dev).manual_seed(5))
+    names, params = zip(*trainer.model.named_parameters())
+
+    def run(impl):
+        total, _ = trainer.loss(batch, points, deform_impl=impl)
+        return total.item(), torch.autograd.grad(total, params)
+
+    def worst(ga, gb):
+        rel = [((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(ga, gb)]
+        i = max(range(len(rel)), key=rel.__getitem__)
+        return rel, rel[i], names[i]
+
+    (lk, gk), (lp, gp) = run("auto"), run("plain")
+    if not abs(lk - lp) <= 1e-4 * abs(lp):
+        raise AssertionError(f"loss through the kernels {lk} vs plain {lp}")
+    rel, worst_rel, worst_name = worst(gk, gp)
+    for name, r in zip(names, rel):
+        if not r <= 1e-3:
+            raise AssertionError(f"{name}: |g_kernel - g_plain| / |g_plain| = {r}")
+    # the kernel path against itself: the run-to-run noise of K2's atomics
+    _, noise, noise_name = worst(run("auto")[1], gk)
+    log("grad_parity", loss_kernel=f"{lk:.6f}", loss_plain=f"{lp:.6f}",
+        params=len(names), worst_rel_err=f"{worst_rel:.3e}", worst_param=worst_name,
+        kernel_repeat_worst_rel=f"{noise:.3e}", kernel_repeat_worst_param=noise_name)
 
 
 def main() -> int:
@@ -197,7 +434,7 @@ def main() -> int:
         k_ms = cuda_ms(lambda: ms_deform_attn_cuda(v, MAIN_SHAPES, loc, attn), 50)
         p_ms = cuda_ms(lambda: ms_deform_attn_plain(v, MAIN_SHAPES, loc, attn), 10)
         g_ms = cuda_ms(lambda: grid_sample_composite(v, MAIN_SHAPES, loc, attn), 10)
-        bound, by, n_bytes, flops = deform_bound_ms(B, MAIN_SHAPES, S_main, 3)
+        bound, by, n_bytes, flops = deform_bound_ms(B, MAIN_SHAPES, S_main, 3, loc)
         timing[B] = (k_ms, p_ms, bound, by)
         log("time", kernel="ms_deform_attn_fwd", B=B, ms=f"{k_ms:.4f}",
             plain_ms=f"{p_ms:.4f}", grid_sample_composite_ms=f"{g_ms:.4f}",
@@ -208,10 +445,10 @@ def main() -> int:
     # -- 5. main path -------------------------------------------------------
     pred = Predictor()
     t0 = time.perf_counter()
-    pred.setup("coco_instance_r50", device="cuda", seed=0)
+    pred.setup(CONFIG, device="cuda", seed=0)
     perturb_deformable(pred.model)  # general sampling locations, not a grid
     torch.cuda.synchronize()
-    log("setup", config="coco_instance_r50", seconds=f"{time.perf_counter() - t0:.2f}",
+    log("setup", config=CONFIG, seconds=f"{time.perf_counter() - t0:.2f}",
         params=sum(p.numel() for p in pred.model.parameters()))
     img_rng = np.random.RandomState(0)
     images = [img_rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in REQUESTS]
@@ -244,9 +481,9 @@ def main() -> int:
     log("main", launches=launches,
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
-    # stage split of one 800x800 request (synchronised between stages)
+    # stage split of the first request (synchronised between stages)
     model = pred.model
-    x = torch.zeros((1, 800, 800, 3))
+    x = torch.zeros((1, *images[0].shape))
     x[0] = torch.from_numpy(images[0].astype(np.float32))
     stages = {}
     with torch.no_grad():
@@ -273,19 +510,51 @@ def main() -> int:
         torch.testing.assert_close(a[key], b[key], rtol=1e-3, atol=1.5e-3)
         log("parity", key=key, max_abs_diff=f"{(a[key] - b[key]).abs().max().item():.3e}")
 
-    # -- 7. result ----------------------------------------------------------
+    del pred, model, a, b
+    torch.cuda.empty_cache()
+
+    # -- 7. K2 against its plain version -------------------------------------
+    k2_err, k2_inputs = check_k2(dev, gen)
+
+    # -- 8. K2 (and K1) timing at the train-path shapes ----------------------
+    k2_ms, k2_plain_ms, k2_bound, k2_by = time_k2(k2_inputs)
+    del k2_inputs
+    torch.cuda.empty_cache()
+
+    # -- 9. gradient parity: kernel path vs plain path ------------------------
+    trainer = make_trainer(dev)
+    grad_parity(trainer, dev)
+
+    # -- 10. the train path ---------------------------------------------------
+    k1_train, k2_train = train_path(trainer, dev)
+
+    # -- 11. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
     kernels = [{
         "name": "ms_deform_attn_fwd",
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
-        "launches": launches,
+        "launches": launches + k1_train,
+        "launches_by_path": {"serve": launches, "train": k1_train},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
         "bound_ms": bound,
         "bound_by": by,
+        "library_ms": None,
+    }, {
+        "name": "ms_deform_attn_bwd",
+        "route": "cuda",
+        "source": "bm2f_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+        "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:118",
+        "launches": k2_train,
+        "launches_by_path": {"serve": 0, "train": k2_train},
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

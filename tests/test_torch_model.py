@@ -24,21 +24,8 @@ from bm2f_tpu_torch.models import build_model
 from bm2f_tpu_torch.models import maskformer as mf
 from bm2f_tpu_torch.predict import Predictor
 from bm2f_tpu_torch.utils.convert_weights import jax_variables_to_state_dict
-from torch_port_utils import randomize, to_numpy_tree
+from torch_port_utils import SMALL, randomize, to_numpy_tree
 
-SMALL = {
-    "model.backbone.resnet.depth": 14,
-    "model.pixel_decoder.conv_dim": 64,
-    "model.pixel_decoder.mask_dim": 64,
-    "model.pixel_decoder.transformer_enc_layers": 2,
-    "model.pixel_decoder.transformer_dim_feedforward": 128,
-    "model.pixel_decoder.deform_impl": "im2col",
-    "model.decoder.hidden_dim": 64,
-    "model.decoder.mask_dim": 64,
-    "model.decoder.dim_feedforward": 128,
-    "model.decoder.dec_layers": 6,
-    "model.decoder.num_queries": 10,
-}
 TOL = dict(rtol=1e-3, atol=1.5e-3)
 K = 80
 
