@@ -11,7 +11,7 @@ is not on the init's grid), answers one warm-up request, then:
      the host, panoptic relabel;
   2. profiles one request with `torch.profiler`, writes the op tables to
      --out (default output/profile_request.txt) and prints the device-busy
-     share.
+     share of the profiled request and of the unprofiled median.
 Needs a card; exits non-zero without one.
 """
 
@@ -138,8 +138,11 @@ def main(argv=None) -> int:
     # repeats the time of the kernels it launched
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA)
+    # the profiler slows the host; the median of the timed requests above
+    # (a synchronise after each step) is the request without it
     print(f"profiled_request wall_ms={wall:.2f} device_busy_ms={dev_us / 1e3:.2f} "
-          f"device_busy_share={dev_us / 1e3 / wall:.3f}")
+          f"busy_share_of_profiled_request={dev_us / 1e3 / wall:.3f} "
+          f"busy_share_of_unprofiled_request={dev_us / 1e3 / sum(med.values()):.3f}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     table_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
     table_dev = events.table(sort_by="self_device_time_total", row_limit=25)

@@ -1,18 +1,16 @@
-"""Where the time of one train step goes, on the card.
+"""Where the device time of one train step goes, on the card.
 
-    python -m bm2f_tpu_torch.tools.profile_train [--batch 2] [--size 1024] \\
-        [--instances 8] [--repeats 3] [--out output/profile_train.txt]
+    python -m bm2f_tpu_torch.tools.profile_train [--out output/profile_train.txt]
 
 Builds `Trainer("coco_instance_r50")` at full width with seeded random
-weights (deformable projections perturbed as in `chip_smoke.py`) and a
-synthetic batch, takes one warm-up step, then:
-  1. times each stage of `Trainer.step` with a synchronise after it
-     (`StageTimer`, median over --repeats steps): forward, matcher costs,
-     host LSA (with its device-to-host copy), losses, backward, clip +
-     AdamW;
-  2. profiles one step with `torch.profiler`: wall time, device-busy
-     share, device kernels launched, the device time of K1 and K2, and the
-     op tables (written to --out).
+weights (deformable projections perturbed as in `chip_smoke.py`) and
+`chip_smoke.py`'s train batch (B=2, 1024x1024, 8 targets per image), takes
+one warm-up step, times 5 steps without the profiler (host clock, each
+ending in a synchronise), then profiles one step with `torch.profiler`.
+Prints the unprofiled step time (median) and the profiled one, the device
+time summed over every kernel and copy, the device-busy share against each
+step time, K1's and K2's device time, and writes the op tables to --out.
+The split of a step by stage is `chip_smoke.py`'s `[train_stages]` line.
 Needs a card; exits non-zero without one.
 """
 
@@ -28,18 +26,23 @@ import torch
 
 from bm2f_tpu_torch.config import get_config
 from bm2f_tpu_torch.tools.profile_request import perturb_deformable
-from bm2f_tpu_torch.train.trainer import StageTimer, Trainer, synthetic_batch
+from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
 
 KERNELS = {"K1": "ms_deform_attn_fwd_kernel", "K2": "ms_deform_attn_bwd_kernel"}
+UNPROFILED_STEPS = 5
+
+
+def timed_step(trainer: Trainer, batch) -> float:
+    """Host-clock ms of one step, from an idle device to a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", default="coco_instance_r50")
-    ap.add_argument("--batch", type=int, default=2)
-    ap.add_argument("--size", type=int, default=1024)
-    ap.add_argument("--instances", type=int, default=8)
-    ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default="output/profile_train.txt")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -48,46 +51,36 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    trainer = Trainer(get_config(args.config), device=dev, seed=0)
+    trainer = Trainer(get_config("coco_instance_r50"), device=dev, seed=0)
     perturb_deformable(trainer.model)
-    batch = synthetic_batch(args.batch, args.size, args.instances, seed=0, device=dev)
-    trainer.step(batch)  # warm-up
-    torch.cuda.synchronize()
-
-    runs = []
-    for _ in range(args.repeats):
-        timer = StageTimer(dev)
-        trainer.step(batch, mark=timer)
-        runs.append(timer.ms)
-    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    print(f"device={torch.cuda.get_device_name(0)!r} config={args.config} "
-          f"batch={args.batch} size={args.size} instances={args.instances} "
-          f"repeats={args.repeats}")
-    print("stages_ms_median " + " ".join(f"{k}={v:.2f}" for k, v in med.items())
-          + f" total={sum(med.values()):.2f}")
+    batch = synthetic_batch(2, 1024, 8, seed=0, device=dev)
+    timed_step(trainer, batch)  # warm-up
+    plain = [timed_step(trainer, batch) for _ in range(UNPROFILED_STEPS)]
+    step_ms = statistics.median(plain)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.step(batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        profiled_ms = timed_step(trainer, batch)
     events = prof.key_averages()
     # device-side events only (kernels, copies): a CPU op's device time
     # repeats the time of the kernels it launched
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in dev_events)
-    n_kernels = sum(e.count for e in dev_events)
-    print(f"profiled_step wall_ms={wall:.2f} device_busy_ms={dev_us / 1e3:.2f} "
-          f"device_busy_share={dev_us / 1e3 / wall:.3f} device_ops={n_kernels}")
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    n_ops = sum(e.count for e in dev_events)
+    print(f"device={torch.cuda.get_device_name(0)!r} batch=2 size=1024 instances=8")
+    print("unprofiled_steps_ms " + " ".join(f"{t:.2f}" for t in plain)
+          + f" median={step_ms:.2f}")
+    print(f"profiled_step_ms={profiled_ms:.2f} profiler_overhead_ms="
+          f"{profiled_ms - step_ms:.2f} device_busy_ms={busy_ms:.2f} device_ops={n_ops} "
+          f"busy_share_of_unprofiled_step={busy_ms / step_ms:.3f} "
+          f"busy_share_of_profiled_step={busy_ms / profiled_ms:.3f}")
     for tag, name in KERNELS.items():
-        us = sum(e.self_device_time_total for e in dev_events if name in e.key)
+        ms = sum(e.self_device_time_total for e in dev_events if name in e.key) / 1e3
         n = sum(e.count for e in dev_events if name in e.key)
-        print(f"{tag} {name} launches={n} device_ms={us / 1e3:.3f} "
-              f"share_of_busy={us / max(dev_us, 1):.4f}")
+        print(f"{tag} {name} launches={n} device_ms={ms:.3f} "
+              f"share_of_busy={ms / max(busy_ms, 1e-9):.4f}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     table_dev = events.table(sort_by="self_device_time_total", row_limit=40)
     table_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)

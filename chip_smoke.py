@@ -23,13 +23,15 @@ Phases, each printing its own line:
   9. gradient parity on the card: `Trainer` on `coco_instance_r50` at full
      width, at its seeded init, one B=1 1024x1024 step's loss and
      gradients through the kernels against the plain path, on the same
-     random points;
+     random points, taken apart into K2's share and the forward's (see
+     `grad_parity`), and K2 against an f64 backward layer by layer;
  10. the train path: that trainer's step at B=2, 1024x1024, one warm-up
      step and 3 timed steps with every kernel's launch count set to 0 just
      before and read just after; finite losses, nonzero gradients of every
      encoder layer's deformable projections, the step's time split by
      stage and peak memory;
- 11. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
+ 11. phase 9 again at the trained state;
+ 12. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
 
 Any failure raises and the script exits non-zero. It imports nothing of JAX
@@ -38,11 +40,14 @@ or of the JAX package. TF32 is off for matmuls and convolutions throughout.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -72,6 +77,11 @@ GRAD_TOL = {"d_value": dict(rtol=1e-4, atol=1e-5),
 # at the edge cases) run in another order each time, so an element may move
 # by a few f32 ulps of the largest sum: rtol 1e-5, atol 1e-6 x max |d_value|
 REPEAT_RTOL, REPEAT_ATOL_OF_MAX = 1e-5, 1e-6
+# every parameter's gradient, norm-relative, through K1 + K2 against K1 + the
+# closed-form plain backward (grad_parity's A-C), and through the closed form
+# against autograd (D-B): both read 5e-7 at the init and 1.4e-6 after the
+# train steps, as K2 against itself does (PERF.md)
+SAME_FORWARD_REL = 1e-5
 
 
 def log(phase: str, **fields) -> None:
@@ -317,15 +327,113 @@ def train_path(trainer, dev):
     return launches
 
 
-def grad_parity(trainer, dev):
-    """Phase 9: one B=1 step's loss and every parameter's gradient through
-    K1/K2 against the plain path, on the same random points, at the seeded
-    init (after steps whose d_value sums ran in atomic order the weights
-    differ from run to run). Gradients agree within a norm-relative 1e-3: a
-    near-tie in the importance top-k can swap one sample point, and the
-    sampling-offset gradients sum f32 differences of neighbouring corners
-    in another order on each path (PERF.md)."""
+def rel_err(a, b) -> float:
+    """|a - b| / |b| (Frobenius norms, in f64)."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp(min=1e-300)).item()
+
+
+def _watch(module, name, store, keep):
+    """Patch `module.name` with a wrapper that appends keep(args, out) to
+    `store` on every call. The wrapper carries the original's attributes: a
+    kernel wrapper counts its launches on whatever its global name holds."""
+    orig = getattr(module, name)
+
+    @functools.wraps(orig)
+    def wrapper(*args):
+        out = orig(*args)
+        store.append(keep(args, out))
+        return out
+
+    return mock.patch.object(module, name, wrapper)
+
+
+def _grad_path(trainer, batch, points, params, impl="auto", fwd=None, bwd=None,
+               k2_calls=None):
+    """One loss and every parameter's gradient. `fwd` / `bwd` stand in for
+    K1 / K2 inside MSDeformAttnFunction; impl="plain" is autograd of the
+    plain forward. Also returns what the path computed on the way: each
+    encoder layer's (shapes, locations), the importance selections and the
+    assignments; K2's (inputs, outputs) go to `k2_calls` when given."""
+    from bm2f_tpu_torch.losses import criterion
+    from bm2f_tpu_torch.models import pixel_decoder
+    from bm2f_tpu_torch.ops import deform_attn
+
+    locs, sel, asg = [], [], []
+    with contextlib.ExitStack() as stack:
+        if fwd is not None:
+            stack.enter_context(mock.patch.object(deform_attn, "ms_deform_attn_cuda", fwd))
+        if bwd is not None:
+            stack.enter_context(mock.patch.object(deform_attn, "ms_deform_attn_bwd_cuda", bwd))
+        for name in ("ms_deform_attn", "ms_deform_attn_plain"):
+            stack.enter_context(_watch(pixel_decoder, name, locs,
+                                       lambda a, o: (a[1], a[2].detach())))
+        stack.enter_context(_watch(criterion, "_importance_weights", sel, lambda a, o: o))
+        stack.enter_context(_watch(criterion, "assign", asg, lambda a, o: o))
+        if k2_calls is not None:
+            stack.enter_context(_watch(deform_attn, "ms_deform_attn_bwd_cuda", k2_calls,
+                                       lambda a, o: (a, o)))
+        total, _ = trainer.loss(batch, points, deform_impl=impl)
+        grads = torch.autograd.grad(total, params)
+    return total.item(), grads, locs, sel, asg
+
+
+def corner_moves(shapes, loc_a, loc_b) -> int:
+    """Samples whose top-left corner pixel differs between two location
+    tensors of one layer (the arithmetic of the kernels' corners)."""
+    n = 0
+    for lid, (H, W) in enumerate(shapes):
+        size = loc_a.new_tensor([W, H])
+        fa = torch.floor(loc_a[:, :, :, lid] * size - 0.5)
+        fb = torch.floor(loc_b[:, :, :, lid] * size - 0.5)
+        n += int((fa != fb).any(-1).sum())
+    return n
+
+
+def offsets_grad(d_loc, shapes, x):
+    """The sampling-offset weight gradient a d_loc gives, in f64: loc =
+    reference + offsets / (W, H) per level, and offsets = x @ weight.T."""
+    norm = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float64,
+                        device=d_loc.device)
+    d_off = d_loc.double() / norm[:, None, :]
+    n = x.shape[0] * x.shape[1]
+    return d_off.reshape(n, -1).T @ x.reshape(n, -1).double()
+
+
+def k2_against_f64(k2_calls, offsets_in):
+    """On each encoder layer's own inputs, as the kernel path handed them to
+    K2: d_loc and the sampling-offset weight gradient from K2 and from the
+    plain backward in f32, against the plain backward in f64 (locations
+    kept f32, so all three use the same corners and fractions)."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_plain
+
+    rows = []
+    # the backward runs the layers last to first
+    for ((v, shapes, loc, attn, g), (_, dl_k, _)), x in zip(k2_calls[::-1], offsets_in):
+        dl_p = ms_deform_attn_bwd_plain(v, shapes, loc, attn, g)[1]
+        dl_r = ms_deform_attn_bwd_plain(v.double(), shapes, loc, attn.double(),
+                                        g.double())[1]
+        dw_k, dw_p, dw_r = (offsets_grad(d, shapes, x) for d in (dl_k, dl_p, dl_r))
+        rows.append({"dloc_k2": rel_err(dl_k, dl_r), "dloc_plain": rel_err(dl_p, dl_r),
+                     "dw_k2": rel_err(dw_k, dw_r), "dw_plain": rel_err(dw_p, dw_r),
+                     "dw_k2_vs_plain": rel_err(dw_k, dw_p)})
+    return rows
+
+
+def grad_parity(trainer, dev, state: str):
+    """Phases 9 and 11: one B=1 1024x1024 loss and every parameter's
+    gradient on the same weights, batch and random points, five ways:
+      A  K1 forward, K2 backward (the train path); A2 the same again
+      C  K1 forward, the closed-form plain backward
+      D  the plain forward, the closed-form plain backward
+      B  autograd of the plain forward (deform_impl="plain")
+    A-A2 is K2's atomics noise, A-C K2's arithmetic inside the model, C-D the
+    forward (K1 against the plain einsum), D-B the closed form against
+    autograd, A-B the whole. Also counts the samples whose corners moved
+    between A's and D's forward, the importance selections and assignments
+    that differ, and holds K2 against an f64 backward layer by layer."""
     from bm2f_tpu_torch.losses.criterion import draw_points
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_plain, ms_deform_attn_plain
     from bm2f_tpu_torch.train.trainer import synthetic_batch
 
     batch = synthetic_batch(1, TRAIN_SIZE, TRAIN_INSTANCES, seed=1, device=dev)
@@ -333,28 +441,57 @@ def grad_parity(trainer, dev):
     points = draw_points(trainer.ccfg, n_layers, 1,
                          torch.Generator(device=dev).manual_seed(5))
     names, params = zip(*trainer.model.named_parameters())
+    layers = trainer.model.sem_seg_head.pixel_decoder.transformer.encoder.layers
 
-    def run(impl):
-        total, _ = trainer.loss(batch, points, deform_impl=impl)
-        return total.item(), torch.autograd.grad(total, params)
+    offsets_in, k2_calls = [], []
+    hooks = [layer.self_attn.sampling_offsets.register_forward_hook(
+        lambda mod, inp, out: offsets_in.append(inp[0].detach())) for layer in layers]
+    try:
+        run = {"A": _grad_path(trainer, batch, points, params, k2_calls=k2_calls)}
+    finally:
+        for h in hooks:
+            h.remove()
+    run["A2"] = _grad_path(trainer, batch, points, params)
+    run["C"] = _grad_path(trainer, batch, points, params, bwd=ms_deform_attn_bwd_plain)
+    run["D"] = _grad_path(trainer, batch, points, params, fwd=ms_deform_attn_plain,
+                          bwd=ms_deform_attn_bwd_plain)
+    run["B"] = _grad_path(trainer, batch, points, params, impl="plain")
 
-    def worst(ga, gb):
-        rel = [((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(ga, gb)]
+    worst = {}
+    for pair in ("A-A2", "A-C", "C-D", "D-B", "A-B"):
+        ga, gb = run[pair.split("-")[0]][1], run[pair.split("-")[1]][1]
+        rel = [rel_err(a, b) for a, b in zip(ga, gb)]
         i = max(range(len(rel)), key=rel.__getitem__)
-        return rel, rel[i], names[i]
-
-    (lk, gk), (lp, gp) = run("auto"), run("plain")
-    if not abs(lk - lp) <= 1e-4 * abs(lp):
-        raise AssertionError(f"loss through the kernels {lk} vs plain {lp}")
-    rel, worst_rel, worst_name = worst(gk, gp)
-    for name, r in zip(names, rel):
-        if not r <= 1e-3:
-            raise AssertionError(f"{name}: |g_kernel - g_plain| / |g_plain| = {r}")
-    # the kernel path against itself: the run-to-run noise of K2's atomics
-    _, noise, noise_name = worst(run("auto")[1], gk)
-    log("grad_parity", loss_kernel=f"{lk:.6f}", loss_plain=f"{lp:.6f}",
-        params=len(names), worst_rel_err=f"{worst_rel:.3e}", worst_param=worst_name,
-        kernel_repeat_worst_rel=f"{noise:.3e}", kernel_repeat_worst_param=noise_name)
+        worst[pair] = (rel[i], names[i], rel)
+    moves = [corner_moves(sa, la, lb) for (sa, la), (_, lb) in zip(run["A"][2], run["D"][2])]
+    sel_diff = sum(int((a != b).sum()) for a, b in zip(run["A"][3], run["B"][3]))
+    asg_diff = sum(int((a != b).sum()) for a, b in zip(run["A"][4], run["B"][4]))
+    loss_a, loss_b = run["A"][0], run["B"][0]
+    log("grad_parity", state=state, loss_kernel=f"{loss_a:.6f}", loss_plain=f"{loss_b:.6f}",
+        params=len(names),
+        **{f"{p}_worst": f"{w[0]:.3e}@{w[1]}" for p, w in worst.items()})
+    samples = run["A"][2][0][1][..., 0].numel()
+    log("grad_parity_cause", state=state, samples_per_layer=samples,
+        corner_moves_by_layer=moves, importance_points_differing=sel_diff,
+        assignments_differing=asg_diff)
+    for i, row in enumerate(k2_against_f64(k2_calls, offsets_in)):
+        log("k2_vs_f64", state=state, layer=i, **{k: f"{v:.3e}" for k, v in row.items()})
+        if not row["dloc_k2"] <= 2 * row["dloc_plain"]:
+            raise AssertionError(f"layer {i}: K2's d_loc departs from f64 more than "
+                                 f"the plain f32 backward's: {row}")
+    if not abs(loss_a - loss_b) <= 1e-4 * abs(loss_b):
+        raise AssertionError(f"loss through the kernels {loss_a} vs plain {loss_b}")
+    for pair in ("A-C", "D-B"):
+        if not worst[pair][0] <= SAME_FORWARD_REL:
+            raise AssertionError(f"{pair}: backwards on the same forward differ by "
+                                 f"{worst[pair][:2]}")
+    # the forwards differ in f32 rounding, which moves a few samples across
+    # a pixel-centre line (where the bilinear derivative jumps) and may swap
+    # an importance point: the kernel-vs-plain gap, bounded at the init
+    if state == "init":
+        for name, r in zip(names, worst["A-B"][2]):
+            if not r <= 1e-3:
+                raise AssertionError(f"{name}: |g_kernel - g_plain| / |g_plain| = {r}")
 
 
 def main() -> int:
@@ -368,6 +505,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from bm2f_tpu_torch.ops import cuda_build
     from bm2f_tpu_torch.ops.deform_attn import (
+        ms_deform_attn_bwd_cuda,
         ms_deform_attn_cuda,
         ms_deform_attn_plain,
     )
@@ -456,7 +594,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ms_deform_attn_cuda.launches = 0
+    ms_deform_attn_cuda.launches = ms_deform_attn_bwd_cuda.launches = 0
     latencies = []
     for img in images:
         t0 = time.perf_counter()
@@ -472,13 +610,15 @@ def main() -> int:
             raise AssertionError(f"instance output {inst['masks'].shape} bad")
         if out["panoptic"][0].shape != (H, W):
             raise AssertionError("panoptic output shape bad")
-    launches = ms_deform_attn_cuda.launches
+    launches, k2_serve = ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches
     if launches != 6 * len(images):
         raise AssertionError(f"ms_deform_attn_fwd launched {launches} times, "
                              f"expected {6 * len(images)}")
+    if k2_serve != 0:  # serving takes no gradient
+        raise AssertionError(f"ms_deform_attn_bwd launched {k2_serve} times in serving")
     for (h, w), ms in zip(REQUESTS, latencies):
         log("request", size=f"{h}x{w}", latency_ms=f"{ms:.2f}")
-    log("main", launches=launches,
+    log("main", launches=launches, k2_launches=k2_serve,
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
     # stage split of the first request (synchronised between stages)
@@ -521,14 +661,17 @@ def main() -> int:
     del k2_inputs
     torch.cuda.empty_cache()
 
-    # -- 9. gradient parity: kernel path vs plain path ------------------------
+    # -- 9. gradient parity at the seeded init ---------------------------------
     trainer = make_trainer(dev)
-    grad_parity(trainer, dev)
+    grad_parity(trainer, dev, "init")
 
     # -- 10. the train path ---------------------------------------------------
     k1_train, k2_train = train_path(trainer, dev)
 
-    # -- 11. result ---------------------------------------------------------
+    # -- 11. gradient parity at the trained state -----------------------------
+    grad_parity(trainer, dev, "trained")
+
+    # -- 12. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
     kernels = [{
         "name": "ms_deform_attn_fwd",
@@ -549,7 +692,7 @@ def main() -> int:
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_bwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:118",
         "launches": k2_train,
-        "launches_by_path": {"serve": 0, "train": k2_train},
+        "launches_by_path": {"serve": k2_serve, "train": k2_train},
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
