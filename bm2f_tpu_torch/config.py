@@ -11,6 +11,7 @@ static values.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Sequence, Tuple
@@ -318,6 +319,16 @@ def update(cfg: Config, overrides: Mapping[str, Any]) -> Config:
     for k, v in overrides.items():
         cfg = _replace_nested(cfg, k, v)
     return cfg
+
+
+def parse_override(text: str) -> Tuple[str, Any]:
+    """A command line's "KEY=VALUE" as (key, value): the value as a Python
+    literal where it parses as one, else the string."""
+    key, _, value = text.partition("=")
+    try:
+        return key, ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        return key, value
 
 
 # ---------------------------------------------------------------------------

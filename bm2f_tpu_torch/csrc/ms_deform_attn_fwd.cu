@@ -24,8 +24,16 @@
 // and `__shfl_sync` broadcasts them to the warp. Nothing is staged in
 // shared memory and nothing is allocated. Closing the gap to the DRAM bound
 // (reusing corner rows across neighbouring queries) is later work.
+//
+// A bf16 `value` (the bf16 serving path) takes the same kernel instantiated
+// on 16-bit rows: it reads bf16 and does all arithmetic in f32, on the f32
+// locations and attention weights, into an f32 output, as the Pallas path
+// does (its patch table is cast to f32, deform_attn_pallas.py:272). A warp's
+// corner read is then 64 bytes, and `value` is half the bytes.
 
 #include "ms_deform_attn_common.cuh"
+
+#include <stdint.h>
 
 namespace {
 
@@ -33,8 +41,21 @@ using msda::kFull;
 using msda::kMaxDChunks;
 using msda::kWarpsPerBlock;
 
+struct Bf16Bits {  // a bf16 value as its 16 bits
+  uint16_t bits;
+};
+
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+
+// a bf16 is the top half of an f32
+__device__ __forceinline__ float load_f32(const Bf16Bits* p) {
+  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p))
+                         << 16);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ms_deform_attn_fwd_kernel(const float* __restrict__ value,
+ms_deform_attn_fwd_kernel(const T* __restrict__ value,
                           const float* __restrict__ loc,
                           const float* __restrict__ attn,
                           float* __restrict__ out, msda::Levels lv, int S, int M,
@@ -50,7 +71,7 @@ ms_deform_attn_fwd_kernel(const float* __restrict__ value,
   const float* loc_w = loc + warp * (long long)K * 2;
   const float* attn_w = attn + warp * (long long)K;
   const long long row_stride = (long long)M * D;  // one pixel of value
-  const float* value_bm = value + b * S * row_stride + (long long)m * D;
+  const T* value_bm = value + b * S * row_stride + (long long)m * D;
   const int nd = D >> 5;
 
   float acc[kMaxDChunks] = {0.f, 0.f, 0.f, 0.f};
@@ -77,10 +98,10 @@ ms_deform_attn_fwd_kernel(const float* __restrict__ value,
         const int s = __shfl_sync(kFull, idx[c], j);
         const float wc = __shfl_sync(kFull, wt[c], j);
         if (s < 0) continue;  // uniform: every lane holds the same s
-        const float* row = value_bm + (long long)s * row_stride;
+        const T* row = value_bm + (long long)s * row_stride;
 #pragma unroll
         for (int t = 0; t < kMaxDChunks; ++t)
-          if (t < nd) acc[t] += wc * __ldg(row + lane + 32 * t);
+          if (t < nd) acc[t] += wc * load_f32(row + lane + 32 * t);
       }
     }
   }
@@ -90,23 +111,41 @@ ms_deform_attn_fwd_kernel(const float* __restrict__ value,
     if (t < nd) o[lane + 32 * t] = acc[t];
 }
 
-}  // namespace
-
-// value (B, S, M, D), loc (B, Q, M, L, P, 2), attn (B, Q, M, L, P), out
-// (B, Q, M*D): contiguous f32 on the device. shapes: host array of L (H, W)
-// pairs. Launches on `stream` and returns cudaGetLastError().
-extern "C" int ms_deform_attn_fwd(const float* value, const float* loc,
-                                  const float* attn, float* out,
-                                  const int* shapes, int B, int S, int M,
-                                  int D, int Q, int L, int P, void* stream) {
+template <typename T>
+int launch(const T* value, const float* loc, const float* attn, float* out,
+           const int* shapes, int B, int S, int M, int D, int Q, int L, int P,
+           void* stream) {
   msda::Levels lv;
   if (!msda::make_levels(shapes, L, P, D, S, &lv))
     return (int)cudaErrorInvalidValue;
   const long long n_warps = (long long)B * Q * M;
   if (n_warps == 0) return 0;
   const long long blocks = (n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  ms_deform_attn_fwd_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
-                              (cudaStream_t)stream>>>(
+  ms_deform_attn_fwd_kernel<T><<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
+                                 (cudaStream_t)stream>>>(
       value, loc, attn, out, lv, S, M, D, Q, P, L * P, n_warps);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// value (B, S, M, D), loc (B, Q, M, L, P, 2), attn (B, Q, M, L, P), out
+// (B, Q, M*D): contiguous on the device; value f32 (ms_deform_attn_fwd) or
+// bf16 (ms_deform_attn_fwd_bf16), everything else f32. shapes: host array of
+// L (H, W) pairs. Launches on `stream` and returns cudaGetLastError().
+extern "C" int ms_deform_attn_fwd(const void* value, const float* loc,
+                                  const float* attn, float* out,
+                                  const int* shapes, int B, int S, int M,
+                                  int D, int Q, int L, int P, void* stream) {
+  return launch(static_cast<const float*>(value), loc, attn, out, shapes, B, S,
+                M, D, Q, L, P, stream);
+}
+
+extern "C" int ms_deform_attn_fwd_bf16(const void* value, const float* loc,
+                                       const float* attn, float* out,
+                                       const int* shapes, int B, int S, int M,
+                                       int D, int Q, int L, int P,
+                                       void* stream) {
+  return launch(static_cast<const Bf16Bits*>(value), loc, attn, out, shapes, B,
+                S, M, D, Q, L, P, stream);
 }

@@ -1,6 +1,15 @@
 """Shared PyTorch building blocks, named as detectron2 names them so that a
 detectron2 checkpoint (and, through `utils/convert_weights.py`, a JAX
-variable tree) maps onto `state_dict()` key for key."""
+variable tree) maps onto `state_dict()` key for key.
+
+Compute dtype, as flax's `dtype=` does it: parameters stay f32, and every
+layer computes in the dtype of its input, casting its weights to it.
+`Linear`, `Conv2d`, `FrozenBatchNorm` and `MultiHeadAttention` run wholly in
+that dtype (attention's softmax in f32); `LayerNorm` and `GroupNorm` take
+their statistics and affine map in f32 and return the input's dtype. The
+models cast their inputs once, where the JAX package does. Outside autograd
+a weight's cast copy is kept (`cast`), so that a bf16 request casts each
+weight once and not at every call."""
 
 from __future__ import annotations
 
@@ -24,29 +33,69 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(features))
 
     def forward(self, x):  # NCHW
-        return x * self.scale[:, None, None] + self.bias[:, None, None]
+        return (x * cast(self.scale, x.dtype)[:, None, None]
+                + cast(self.bias, x.dtype)[:, None, None])
+
+
+def cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    """A weight `p` in `dtype`. Where autograd does not track `p`, its copy
+    in `dtype` is kept on `p` and reused until `p` changes (in place, which
+    bumps its version, or by a new storage): one cast launch per weight and
+    not one per call, which on the card is host time."""
+    if p is None or p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype)
+    key = (dtype, p._version, p.data_ptr())
+    kept = getattr(p, "_cast_copy", None)
+    if kept is None or kept[0] != key:
+        kept = (key, p.detach().to(dtype))
+        p._cast_copy = kept
+    return kept[1]
+
+
+class Linear(nn.Linear):
+    """nn.Linear in the input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
 
 
 class Conv2d(nn.Conv2d):
-    """detectron2's Conv2d: a convolution with an optional norm attached as
-    the `norm` child (so its keys read `<conv>.norm.*`)."""
+    """detectron2's Conv2d, in the input's dtype: a convolution with an
+    optional norm attached as the `norm` child (so its keys read
+    `<conv>.norm.*`)."""
 
     def __init__(self, *args, norm: Optional[nn.Module] = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.norm = norm
 
     def forward(self, x):
-        x = super().forward(x)
+        x = self._conv_forward(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
         return self.norm(x) if self.norm is not None else x
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax LayerNorm(dtype=x.dtype): statistics and affine map in f32."""
+
+    def forward(self, x):
+        return super().forward(x.float()).to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax GroupNorm(dtype=x.dtype): statistics and affine map in f32."""
+
+    def forward(self, x):
+        return super().forward(x.float()).to(x.dtype)
 
 
 def get_norm(name: str, features: int) -> Optional[nn.Module]:
     if name in ("", None, "none"):
         return None
     if name == "group_norm":  # detectron2 "GN" = GroupNorm(32, C)
-        return nn.GroupNorm(32, features, eps=1e-5)
+        return GroupNorm(32, features, eps=1e-5)
     if name == "layer_norm":
-        return nn.LayerNorm(features, eps=1e-5)
+        return LayerNorm(features, eps=1e-5)
     if name == "frozen_bn":
         return FrozenBatchNorm(features)
     raise ValueError(f"unknown norm {name!r}")
@@ -62,7 +111,7 @@ class MLP(nn.Module):
         dims_in = [input_dim] + [hidden_dim] * (num_layers - 1)
         dims_out = [hidden_dim] * (num_layers - 1) + [output_dim]
         self.layers = nn.ModuleList(
-            nn.Linear(i, o) for i, o in zip(dims_in, dims_out))
+            Linear(i, o) for i, o in zip(dims_in, dims_out))
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
@@ -75,21 +124,22 @@ class MLP(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Multi-head attention in torch nn.MultiheadAttention's parameter
     layout (packed `in_proj_weight` (3C, C), `in_proj_bias`, `out_proj`),
-    batch-first (B, N, C). `attn_bias` is an additive float bias
-    broadcastable to (B, heads, Nq, Nk); the softmax runs in f32."""
+    batch-first (B, N, C), in the query's dtype. `attn_bias` is an additive
+    float bias broadcastable to (B, heads, Nq, Nk); the softmax runs in
+    f32."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
 
     def forward(self, query, key, value, attn_bias=None):
         C = query.shape[-1]
         H = self.num_heads
         D = C // H
-        w, b = self.in_proj_weight, self.in_proj_bias
+        w, b = cast(self.in_proj_weight, query.dtype), cast(self.in_proj_bias, query.dtype)
         q = F.linear(query, w[:C], b[:C])
         k = F.linear(key, w[C:2 * C], b[C:2 * C])
         v = F.linear(value, w[2 * C:], b[2 * C:])

@@ -6,6 +6,11 @@ sides are multiples of `size_divisibility` (NCHW inside); preprocessing is
 `normalize_images`; the three inference modes are standalone functions with
 fixed output shapes (validity masks instead of filtering), as in the JAX
 package.
+
+`model.dtype` "bfloat16" computes in bf16 as the JAX `build_model` does
+(parameters stay f32; see `models/layers.py`): the backbone and the
+predictor in bf16, the pixel decoder in f32 when `pixel_decoder_f32` is set
+and in bf16 otherwise; `pred_*` and `aux_*` are f32 either way.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ from bm2f_tpu_torch.models.resnet import (
 )
 from bm2f_tpu_torch.models.transformer_decoder import MultiScaleMaskedTransformerDecoder
 from bm2f_tpu_torch.ops import resize_bilinear
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def normalize_images(images: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -47,9 +55,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"decoder {cfg.decoder.name!r}: the standard decoder is ROADMAP "
             "queue 1 item 17")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"model.dtype {cfg.dtype!r}: bf16 is ROADMAP queue 1 item 10a")
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"model.dtype {cfg.dtype!r}: one of {sorted(DTYPES)}")
 
 
 class MaskFormerHead(nn.Module):
@@ -58,11 +65,14 @@ class MaskFormerHead(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        dtype = DTYPES[cfg.dtype]
         self.pixel_decoder = MSDeformAttnPixelDecoder(
-            cfg.pixel_decoder, RESNET_FEATURE_CHANNELS, RESNET_FEATURE_STRIDES)
+            cfg.pixel_decoder, RESNET_FEATURE_CHANNELS, RESNET_FEATURE_STRIDES,
+            dtype=torch.float32 if cfg.pixel_decoder_f32 else dtype)
         C = cfg.pixel_decoder.conv_dim
         self.predictor = MultiScaleMaskedTransformerDecoder(
-            cfg.decoder, cfg.num_classes, [C] * cfg.decoder.num_feature_levels)
+            cfg.decoder, cfg.num_classes, [C] * cfg.decoder.num_feature_levels,
+            dtype=dtype)
 
     def forward(self, features: Dict[str, torch.Tensor], deform_impl: str = "auto"):
         mask_features, _, ms_feats = self.pixel_decoder(features, deform_impl)
@@ -80,7 +90,8 @@ class MaskFormer(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         self.backbone = ResNet(cfg.backbone.resnet.depth,
-                               cfg.backbone.resnet.out_features)
+                               cfg.backbone.resnet.out_features,
+                               dtype=DTYPES[cfg.dtype])
         self.sem_seg_head = MaskFormerHead(cfg)
 
     def forward(self, images: torch.Tensor,

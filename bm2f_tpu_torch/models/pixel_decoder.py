@@ -6,7 +6,12 @@
   (the hand-written CUDA kernel on the card, the plain version on the CPU);
 - no padding masks: the reference feeds an all-False mask
   (msdeformattn.py:62), so valid ratios are 1 and the reference points
-  depend only on the level sizes.
+  depend only on the level sizes;
+- `dtype` is the compute dtype (f32, or bf16 when the model's is and
+  `pixel_decoder_f32` is off). In bf16 the deformable module follows the
+  JAX package's Pallas path, the counterpart of the kernel: the attention
+  softmax and the sampling locations stay f32, the kernel reads the bf16
+  `value` and returns f32, and `output_proj` casts it back.
 
 Module and parameter names follow detectron2
 (`input_proj.{i}.{0,1}`, `transformer.level_embed`,
@@ -26,7 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bm2f_tpu_torch.config import PixelDecoderConfig
-from bm2f_tpu_torch.models.layers import Conv2d, get_norm
+from bm2f_tpu_torch.models.layers import Conv2d, GroupNorm, LayerNorm, Linear, cast, get_norm
 from bm2f_tpu_torch.models.position_encoding import sine_position_embedding_2d
 from bm2f_tpu_torch.ops import ms_deform_attn, resize_bilinear
 from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_plain
@@ -55,10 +60,10 @@ class MSDeformAttnModule(nn.Module):
     def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int):
         super().__init__()
         self.n_heads, self.n_levels, self.n_points = n_heads, n_levels, n_points
-        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
-        self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.sampling_offsets = Linear(d_model, n_heads * n_levels * n_points * 2)
+        self.attention_weights = Linear(d_model, n_heads * n_levels * n_points)
+        self.value_proj = Linear(d_model, d_model)
+        self.output_proj = Linear(d_model, d_model)
 
     def ring_bias(self) -> torch.Tensor:
         """The from-scratch value of `sampling_offsets.bias`."""
@@ -75,7 +80,7 @@ class MSDeformAttnModule(nn.Module):
         value = self.value_proj(value_src).view(B, -1, M, C // M)
         offsets = self.sampling_offsets(query).view(B, Q, M, L, P, 2)
         attn = self.attention_weights(query).view(B, Q, M, L * P)
-        attn = torch.softmax(attn.float(), dim=-1).to(query.dtype).view(B, Q, M, L, P)
+        attn = torch.softmax(attn.float(), dim=-1).view(B, Q, M, L, P)  # f32
         # per-level normalizer (W, H) (reference ms_deform_attn.py:107-109)
         normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
                                   dtype=torch.float32, device=query.device)
@@ -87,7 +92,7 @@ class MSDeformAttnModule(nn.Module):
             out = ms_deform_attn(value, spatial_shapes, loc, attn)
         else:
             raise ValueError(f"unknown deform_impl {deform_impl!r}")
-        return self.output_proj(out)
+        return self.output_proj(out.to(value.dtype))  # the core returns f32
 
 
 class DeformableEncoderLayer(nn.Module):
@@ -97,10 +102,10 @@ class DeformableEncoderLayer(nn.Module):
                  n_points: int):
         super().__init__()
         self.self_attn = MSDeformAttnModule(d_model, n_levels, n_heads, n_points)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, d_ffn)
+        self.linear2 = Linear(d_ffn, d_model)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, spatial_shapes: Shapes,
                 deform_impl: str = "auto"):
@@ -157,16 +162,16 @@ class MSDeformAttnPixelDecoder(nn.Module):
     is at stride `common_stride` (4)."""
 
     def __init__(self, cfg: PixelDecoderConfig, in_channels: Dict[str, int],
-                 in_strides: Dict[str, int]):
+                 in_strides: Dict[str, int], dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         C = cfg.conv_dim
         # transformer levels, top-down order (res5, res4, res3)
         self.tr_feats = sorted(cfg.transformer_in_features,
                                key=lambda f: in_strides[f], reverse=True)
         self.input_proj = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(in_channels[f], C, 1),
-                          nn.GroupNorm(32, C, eps=1e-5))
+            nn.Sequential(Conv2d(in_channels[f], C, 1), GroupNorm(32, C, eps=1e-5))
             for f in self.tr_feats)
         self.transformer = MSDeformAttnTransformerEncoderOnly(
             C, len(self.tr_feats), cfg.transformer_enc_layers,
@@ -185,19 +190,19 @@ class MSDeformAttnPixelDecoder(nn.Module):
                 in_channels[f], C, 1, bias=use_bias, norm=get_norm(cfg.norm, C)))
             self.add_module(f"layer_{k}", Conv2d(
                 C, C, 3, padding=1, bias=use_bias, norm=get_norm(cfg.norm, C)))
-        self.mask_features = nn.Conv2d(C, cfg.mask_dim, 1)
+        self.mask_features = Conv2d(C, cfg.mask_dim, 1)
 
     def forward(self, features: Dict[str, torch.Tensor], deform_impl: str = "auto"):
         C = self.cfg.conv_dim
         srcs, poss, shapes = [], [], []
         for i, f in enumerate(self.tr_feats):
-            x = self.input_proj[i](features[f])
+            x = self.input_proj[i](features[f].to(self.dtype))
             B, _, H, W = x.shape
             shapes.append((H, W))
             srcs.append(x.flatten(2).transpose(1, 2))  # (B, HW, C)
             pe = sine_position_embedding_2d(H, W, C // 2, device=x.device,
                                             dtype=x.dtype)
-            poss.append(pe.reshape(H * W, C) + self.transformer.level_embed[i])
+            poss.append(pe.reshape(H * W, C) + cast(self.transformer.level_embed, x.dtype)[i])
         shapes = tuple(shapes)
         src = torch.cat(srcs, 1)
         pos = torch.cat(poss, 0)[None]  # (1, S, C)
@@ -215,7 +220,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
 
         # FPN fuse, bilinear top-down (reference msdeformattn.py:343-351)
         for k in range(len(self.fpn_feats), 0, -1):
-            lat = getattr(self, f"adapter_{k}")(features[self.fpn_feats[k - 1]])
+            lat = getattr(self, f"adapter_{k}")(features[self.fpn_feats[k - 1]].to(self.dtype))
             y = lat + resize_bilinear(out[-1], lat.shape[-2], lat.shape[-1])
             out.append(F.relu(getattr(self, f"layer_{k}")(y)))
 

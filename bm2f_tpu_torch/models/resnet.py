@@ -4,7 +4,8 @@ Mirrors detectron2's builtin `build_resnet_backbone` used by the reference's
 Base-*.yaml configs: caffe-style MSRA weights, FrozenBN, STRIDE_IN_1X1=True,
 conv bias=False. Keys follow detectron2 (`backbone.stem.conv1`,
 `backbone.res2.0.conv1`, `backbone.res2.0.shortcut`, ...). Output features:
-res2 (stride 4) .. res5 (stride 32).
+res2 (stride 4) .. res5 (stride 32), in `dtype` (convolutions and FrozenBN
+in it, as the JAX package's ConvBN with `dtype=`).
 """
 
 from __future__ import annotations
@@ -63,8 +64,10 @@ class BottleneckBlock(nn.Module):
 
 class ResNet(nn.Module):
     def __init__(self, depth: int = 50,
-                 out_features: Sequence[str] = ("res2", "res3", "res4", "res5")):
+                 out_features: Sequence[str] = ("res2", "res3", "res4", "res5"),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.out_features = tuple(out_features)
         self.stem = BasicStem()
         self.stage_names = []
@@ -82,7 +85,7 @@ class ResNet(nn.Module):
             bott *= 2
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.stem(x)
+        x = self.stem(x.to(self.dtype))
         outs = {}
         for name in self.stage_names:
             x = getattr(self, name)(x)

@@ -8,7 +8,10 @@ mask2former/modeling/transformer_decoder/mask2former_transformer_decoder.py:207-
 - the attention mask is einsum(mask_embed, resize(mask_features)), with the
   mask features resized once per level: bilinear resize commutes with the
   channel contraction, so this equals the reference's resize(einsum);
-- per-layer predictions are stacked: aux outputs are (L, B, ...).
+- per-layer predictions are stacked: aux outputs are (L, B, ...);
+- `dtype` is the compute dtype: features, mask features, embeddings and
+  queries are cast to it, the attention mask is taken from a sigmoid in
+  f32, and the outputs are f32 (as the JAX package's).
 
 Parameter names follow detectron2 (`transformer_cross_attention_layers.{i}
 .multihead_attn`, `transformer_self_attention_layers.{i}.self_attn`,
@@ -25,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bm2f_tpu_torch.config import DecoderConfig
-from bm2f_tpu_torch.models.layers import MLP, MultiHeadAttention
+from bm2f_tpu_torch.models.layers import MLP, Conv2d, LayerNorm, Linear, MultiHeadAttention, cast
 from bm2f_tpu_torch.models.position_encoding import sine_position_embedding_2d
 from bm2f_tpu_torch.ops import resize_bilinear
 
@@ -36,7 +39,7 @@ class SelfAttentionLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, pre_norm: bool = False):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm = LayerNorm(d_model, eps=1e-5)
         self.pre_norm = pre_norm
 
     def forward(self, tgt, query_pos):
@@ -52,7 +55,7 @@ class CrossAttentionLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, pre_norm: bool = False):
         super().__init__()
         self.multihead_attn = MultiHeadAttention(d_model, nhead)
-        self.norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm = LayerNorm(d_model, eps=1e-5)
         self.pre_norm = pre_norm
 
     def forward(self, tgt, memory, attn_bias, pos, query_pos):
@@ -67,9 +70,9 @@ class CrossAttentionLayer(nn.Module):
 class FFNLayer(nn.Module):
     def __init__(self, d_model: int, dim_feedforward: int, pre_norm: bool = False):
         super().__init__()
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm = LayerNorm(d_model, eps=1e-5)
         self.pre_norm = pre_norm
 
     def forward(self, tgt):
@@ -92,15 +95,16 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
     """
 
     def __init__(self, cfg: DecoderConfig, num_classes: int,
-                 in_channels: Sequence[int]):
+                 in_channels: Sequence[int], dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         C, nL = cfg.hidden_dim, cfg.num_feature_levels
         self.query_feat = nn.Embedding(cfg.num_queries, C)
         self.query_embed = nn.Embedding(cfg.num_queries, C)
         self.level_embed = nn.Embedding(nL, C)
         self.input_proj = nn.ModuleList(
-            nn.Conv2d(ci, C, 1) if (ci != C or cfg.enforce_input_project)
+            Conv2d(ci, C, 1) if (ci != C or cfg.enforce_input_project)
             else nn.Identity()
             for ci in in_channels)
         L = cfg.dec_layers
@@ -110,8 +114,8 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             SelfAttentionLayer(C, cfg.nheads, cfg.pre_norm) for _ in range(L))
         self.transformer_ffn_layers = nn.ModuleList(
             FFNLayer(C, cfg.dim_feedforward, cfg.pre_norm) for _ in range(L))
-        self.decoder_norm = nn.LayerNorm(C, eps=1e-5)
-        self.class_embed = nn.Linear(C, num_classes + 1)
+        self.decoder_norm = LayerNorm(C, eps=1e-5)
+        self.class_embed = Linear(C, num_classes + 1)
         self.mask_embed = MLP(C, C, cfg.mask_dim, 3)
 
     def forward(self, x: Sequence[torch.Tensor],
@@ -119,13 +123,14 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         cfg = self.cfg
         C, nL, Q = cfg.hidden_dim, cfg.num_feature_levels, cfg.num_queries
         assert len(x) == nL
-        B = x[0].shape[0]
+        B, dt = x[0].shape[0], self.dtype
+        mask_features = mask_features.to(dt)
 
         srcs, poss, mf_lvl = [], [], []
         for i in range(nL):
-            feat = self.input_proj[i](x[i])
+            feat = self.input_proj[i](x[i].to(dt))
             H, W = feat.shape[-2:]
-            srcs.append(feat.flatten(2).transpose(1, 2) + self.level_embed.weight[i])
+            srcs.append(feat.flatten(2).transpose(1, 2) + cast(self.level_embed.weight, dt)[i])
             pe = sine_position_embedding_2d(H, W, C // 2, device=feat.device,
                                             dtype=feat.dtype)
             poss.append(pe.reshape(1, H * W, C))
@@ -146,8 +151,8 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             bias = bias.masked_fill(blocked, NEG_INF)[:, None]  # (B,1,Q,HW)
             return dec, membed, bias
 
-        output = self.query_feat.weight[None].expand(B, Q, C)
-        qpos = self.query_embed.weight[None].expand(B, Q, C)
+        output = cast(self.query_feat.weight, dt)[None].expand(B, Q, C)
+        qpos = cast(self.query_embed.weight, dt)[None].expand(B, Q, C)
         dec, membed, bias = head(output, 0)  # layer-0 prediction: raw queries
         decs: List[torch.Tensor] = [dec]
         membeds: List[torch.Tensor] = [membed]

@@ -19,6 +19,12 @@ Shapes:
 the plain forward and the closed-form plain backward, CUDA tensors take K1
 and K2. `ms_deform_attn_plain` on its own is differentiated by autograd and
 serves as the independent reference on the card.
+
+`value` may be bf16 (the bf16 serving path): the forward then reads bf16
+rows and computes in f32 on the f32 locations and attention weights, into an
+f32 output, as the JAX package's Pallas path does. Its gradient (K2 on a
+bf16 `value`) is not ported yet, so the Function refuses a bf16 `value` when
+any input requires grad.
 """
 
 from __future__ import annotations
@@ -72,7 +78,10 @@ def ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
     """Row-gather formulation: value viewed as (B*M*S, D) rows, every
     (level, point, corner) sample one row index, bilinear and attention
     weights folded into one einsum. Corners outside the level get weight 0
-    (their index is clamped into range and read, then multiplied by 0)."""
+    (their index is clamped into range and read, then multiplied by 0). A
+    bf16 `value` is upcast to f32 first, so the result is f32, as K1's."""
+    if value.dtype == torch.bfloat16:
+        value = value.float()
     B, S, M, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
     starts = level_start_index(spatial_shapes)
@@ -140,10 +149,11 @@ def ms_deform_attn_bwd_plain(value, spatial_shapes, sampling_locations,
 
 
 def _cuda_dims(value, spatial_shapes, sampling_locations, attention_weights,
-               grad_out=None) -> Tuple[int, ...]:
-    """(B, S, M, D, Q, L, P). Raises unless every input is a contiguous f32
-    tensor of its expected shape on value's CUDA device, and the sizes are
-    ones the kernels take."""
+               grad_out=None, value_dtypes=(torch.float32,)) -> Tuple[int, ...]:
+    """(B, S, M, D, Q, L, P). Raises unless every input is a contiguous
+    tensor of its expected shape on value's CUDA device, `value` of one of
+    `value_dtypes` and the others f32, and the sizes are ones the kernels
+    take."""
     B, S, M, D = value.shape
     Q = sampling_locations.shape[1]
     L, P = len(spatial_shapes), sampling_locations.shape[4]
@@ -157,8 +167,10 @@ def _cuda_dims(value, spatial_shapes, sampling_locations, attention_weights,
     for name, t, shape in specs:
         if not t.is_cuda or t.device != value.device:
             raise ValueError(f"{name} must lie on {value.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = value_dtypes if t is value else (torch.float32,)
+        if t.dtype not in want:
+            raise TypeError(f"{name} must be {' or '.join(str(d)[6:] for d in want)}, "
+                            f"got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
@@ -177,31 +189,40 @@ def _shapes_arg(spatial_shapes):
 
 def ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
                         attention_weights) -> torch.Tensor:
-    """Launch K1. Takes contiguous f32 CUDA tensors; raises on anything
-    else, when the build or the launch fails, and when grad mode is on and
-    an input requires grad: the output has no `grad_fn`, so a caller that
-    wants gradients goes through `ms_deform_attn` (the autograd Function)."""
+    """Launch K1: an f32 output from contiguous CUDA tensors, `value` f32 or
+    bf16 and the rest f32. Raises on anything else, when the build or the
+    launch fails, and when grad mode is on and an input requires grad: the
+    output has no `grad_fn`, so a caller that wants gradients goes through
+    `ms_deform_attn` (the autograd Function). f32 launches count in
+    `.launches`, bf16 launches in `.launches_bf16`."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (value, sampling_locations, attention_weights)):
         raise RuntimeError(
             "ms_deform_attn_cuda would cut the gradient here: call "
             "ms_deform_attn, whose autograd Function runs K1 and K2")
     B, S, M, D, Q, L, P = _cuda_dims(value, spatial_shapes, sampling_locations,
-                                     attention_weights)
+                                     attention_weights,
+                                     value_dtypes=(torch.float32, torch.bfloat16))
     out = torch.empty((B, Q, M * D), device=value.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    fn = _kernel(_FWD_SOURCE, "ms_deform_attn_fwd", n_tensors=4)
+    bf16 = value.dtype == torch.bfloat16
+    fn = _kernel(_FWD_SOURCE, "ms_deform_attn_fwd_bf16" if bf16 else "ms_deform_attn_fwd",
+                 n_tensors=4)
     rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
             attention_weights.data_ptr(), out.data_ptr(), _shapes_arg(spatial_shapes),
             B, S, M, D, Q, L, P, torch.cuda.current_stream(value.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ms_deform_attn_fwd launch failed: CUDA error {rc}")
-    ms_deform_attn_cuda.launches += 1
+    if bf16:
+        ms_deform_attn_cuda.launches_bf16 += 1
+    else:
+        ms_deform_attn_cuda.launches += 1
     return out
 
 
 ms_deform_attn_cuda.launches = 0
+ms_deform_attn_cuda.launches_bf16 = 0
 
 
 def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations,
@@ -246,6 +267,10 @@ class MSDeformAttnFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
+        if value.dtype == torch.bfloat16 and any(ctx.needs_input_grad):
+            raise NotImplementedError(
+                f"gradients through ms_deform_attn on a {value.dtype} value: K2 "
+                "takes f32 only (bf16 training is ROADMAP queue 1 item 10b)")
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, sampling_locations, attention_weights)
         if value.device.type == "cpu":

@@ -4,7 +4,7 @@ semantic, instance and panoptic outputs of one image."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -23,10 +23,13 @@ from bm2f_tpu_torch.ops import resize_bilinear
 
 class Predictor:
     def setup(self, config: str = "coco_instance_r50", weights: str = "",
-              device="cuda", seed: int = 0) -> None:
+              device="cuda", seed: int = 0,
+              overrides: Optional[Mapping[str, Any]] = None) -> None:
         """No weights: seeded random init. `.pkl`/`.pth`: a detectron2
-        checkpoint."""
-        self.cfg = get_config(config)
+        checkpoint. `overrides` set config fields, for example the bench's
+        bf16 serving: {"model.dtype": "bfloat16", "model.pixel_decoder_f32":
+        False} (the weights stay f32 and serve either dtype)."""
+        self.cfg = get_config(config, overrides)
         self.device = torch.device(device)
         self.model = build_model(self.cfg, device=self.device, seed=seed)
         if weights.endswith((".pkl", ".pth")):
@@ -42,7 +45,8 @@ class Predictor:
     def predict(self, image: np.ndarray) -> Dict:
         """image: (H, W, 3) RGB. Pads to `size_divisibility`, runs the
         network, resizes the masks to the padded size and crops, then runs
-        the three inference modes."""
+        the three inference modes on the f32 predictions (in either model
+        dtype); the outputs on the host are f32."""
         H, W = image.shape[:2]
         d = self.cfg.model.size_divisibility
         ph, pw = (H + d - 1) // d * d, (W + d - 1) // d * d

@@ -1,6 +1,7 @@
 """Where the time of one served request goes, on the card.
 
-    python -m bm2f_tpu_torch.tools.profile_request [--size 800x800] [--repeats 5]
+    python -m bm2f_tpu_torch.tools.profile_request [--size 800x800] [--repeats 5] \
+        [--set model.dtype=bfloat16 --set model.pixel_decoder_f32=False]
 
 Builds `Predictor("coco_instance_r50")` at full width with seeded random
 weights (deformable projections perturbed as in `chip_smoke.py`, so sampling
@@ -12,6 +13,8 @@ is not on the init's grid), answers one warm-up request, then:
   2. profiles one request with `torch.profiler`, writes the op tables to
      --out (default output/profile_request.txt) and prints the device-busy
      share of the profiled request and of the unprofiled median.
+`--set KEY=VALUE` overrides a config field (a Python literal), as the train
+entry point's does; the two above give the bench's bf16 serving.
 Needs a card; exits non-zero without one.
 """
 
@@ -26,6 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from bm2f_tpu_torch.config import parse_override
 from bm2f_tpu_torch.evaluation.panoptic_post import relabel_panoptic
 from bm2f_tpu_torch.models.maskformer import (
     instance_inference,
@@ -103,6 +107,8 @@ def main(argv=None) -> int:
     ap.add_argument("--size", default="800x800")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--out", default="output/profile_request.txt")
+    ap.add_argument("--set", action="append", default=[], type=parse_override,
+                    metavar="KEY=VALUE")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_request: no CUDA device", file=sys.stderr)
@@ -111,7 +117,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     h, w = (int(v) for v in args.size.split("x"))
     pred = Predictor()
-    pred.setup("coco_instance_r50", device="cuda", seed=0)
+    pred.setup("coco_instance_r50", device="cuda", seed=0, overrides=dict(args.set))
     perturb_deformable(pred.model)
     image = np.random.RandomState(0).randint(0, 256, (h, w, 3)).astype(np.uint8)
     pred.predict(image)  # warm-up
@@ -120,7 +126,9 @@ def main(argv=None) -> int:
     steps = [k for k in runs[0] if k != "segments"]
     med = {k: statistics.median(r[k] for r in runs) for k in steps}
     print(f"device={torch.cuda.get_device_name(0)!r} size={args.size} "
-          f"repeats={args.repeats} segments={runs[0]['segments']}")
+          f"repeats={args.repeats} segments={runs[0]['segments']} "
+          f"dtype={pred.cfg.model.dtype} "
+          f"pixel_decoder_f32={pred.cfg.model.pixel_decoder_f32}")
     print("steps_ms_median " + " ".join(f"{k}={v:.2f}" for k, v in med.items())
           + f" total={sum(med.values()):.2f}")
 

@@ -17,22 +17,13 @@ for example a small model on the CPU:
 from __future__ import annotations
 
 import argparse
-import ast
 import logging
 import time
 
 import torch
 
-from bm2f_tpu_torch.config import get_config
+from bm2f_tpu_torch.config import get_config, parse_override
 from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
-
-
-def _override(text: str):
-    key, _, value = text.partition("=")
-    try:
-        return key, ast.literal_eval(value)
-    except (ValueError, SyntaxError):
-        return key, value
 
 
 def main(argv=None) -> int:
@@ -44,7 +35,7 @@ def main(argv=None) -> int:
     ap.add_argument("--instances", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--set", action="append", default=[], type=_override,
+    ap.add_argument("--set", action="append", default=[], type=parse_override,
                     metavar="KEY=VALUE")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")

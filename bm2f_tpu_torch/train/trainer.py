@@ -52,6 +52,10 @@ def _check_trainable(cfg: Config) -> None:
         raise NotImplementedError(
             f"sup_type {cfg.model.loss.sup_type!r}: weak supervision is ROADMAP "
             "queue 1 item 19")
+    if cfg.model.dtype != "float32":
+        raise NotImplementedError(
+            f"model.dtype {cfg.model.dtype!r}: bf16 training (K2 on a bf16 value) "
+            "is ROADMAP queue 1 item 10b")
 
 
 def synthetic_batch(batch: int, size: int, instances: int, seed: int,

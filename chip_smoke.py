@@ -31,7 +31,23 @@ Phases, each printing its own line:
      encoder layer's deformable projections, the step's time split by
      stage and peak memory;
  11. phase 9 again at the trained state;
- 12. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
+ 12. the gather probe (`python -m bm2f_tpu_torch.tools.roofline_microbench`,
+     driven through its `bench_level`): K3 and K4 in f32 and bf16 at the
+     production shapes (BM 32, QP 13312, K 4), S 625 and 2500 for both, S
+     10000 for K3 too, random and coherent addresses, every count set to 0
+     just before and read just after. Each output bitwise equal to the plain
+     version; each timed beside the plain version, the bound and
+     `F.embedding_bag`;
+ 13. K1 on a bf16 `value` against its plain version (edge cases and the
+     800x800 shapes at B=1 and 4) and timed beside it and its bound;
+ 14. bf16 serving: `Predictor` with model.dtype=bfloat16 and
+     pixel_decoder_f32=False (the JAX bench's configuration) answers the 3
+     requests with every count set to 0 before and read after (K1-bf16 6
+     launches a request, K1-f32 none); its stage split; parity of
+     pred_logits and pred_masks against the plain path in bf16 and against
+     the f32 kernel path on the same weights; then one request with
+     pixel_decoder_f32=True, where K1-f32 launches 6 times;
+ 15. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
 
 Any failure raises and the script exits non-zero. It imports nothing of JAX
@@ -55,7 +71,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, f32 outside the
-# tensor cores
+# tensor cores (the probe's bounds, with the tensor cores' rates, are
+# computed by bm2f_tpu_torch/tools/roofline_microbench.py)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
@@ -82,6 +99,19 @@ REPEAT_RTOL, REPEAT_ATOL_OF_MAX = 1e-5, 1e-6
 # against autograd (D-B): both read 5e-7 at the init and 1.4e-6 after the
 # train steps, as K2 against itself does (PERF.md)
 SAME_FORWARD_REL = 1e-5
+# bf16 serving at 800x800, norm-relative, on pred_logits and pred_masks:
+# through K1-bf16 against the plain path in bf16, and against the f32 kernel
+# path on the same weights. Read on an H100: 7.4e-3 to 2.0e-2 both ways (the
+# two bf16 paths round K1's f32 sums differently, and the predictor's mask
+# threshold turns that into flipped mask bits); held at 2.5x the largest
+BF16_VS_PLAIN_REL = BF16_VS_F32_REL = 0.05
+# bf16 serving: the bench's configuration, and with the pixel decoder in f32
+BF16 = {"model.dtype": "bfloat16", "model.pixel_decoder_f32": False}
+BF16_PD_F32 = {"model.dtype": "bfloat16", "model.pixel_decoder_f32": True}
+# the probe: level sizes of every impl, and of K3 alone; CUDA-event launches
+PROBE_LEVELS, PROBE_K3_LEVELS, PROBE_ITERS = (625, 2500), (10000,), 20
+# the probe's row of each kernel in the kernels line
+PROBE_ROW = dict(S=2500, addresses="random")
 
 
 def log(phase: str, **fields) -> None:
@@ -150,12 +180,12 @@ def bound_ms(n_bytes: int, flops: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def deform_bound_ms(B, shapes, Q, L, loc):
-    """K1: reads value, loc, attn once and writes the output once; one FMA
-    per valid corner and channel."""
+def deform_bound_ms(B, shapes, Q, L, loc, value_bytes=4):
+    """K1: reads value (`value_bytes` an element), loc, attn once and writes
+    the f32 output once; one FMA per valid corner and channel."""
     S = sum(h * w for h, w in shapes)
-    n_bytes = 4 * (B * S * M * D + B * Q * M * L * P * 2 + B * Q * M * L * P
-                   + B * Q * M * D)
+    n_bytes = (value_bytes * B * S * M * D
+               + 4 * (B * Q * M * L * P * 2 + B * Q * M * L * P + B * Q * M * D))
     flops = 2 * D * valid_corners(shapes, loc)
     return (*bound_ms(n_bytes, flops), n_bytes, flops)
 
@@ -260,6 +290,70 @@ def time_k2(inputs):
     return k_ms, p_ms, bound, by
 
 
+def reset_counts():
+    """Every kernel wrapper's launch counts to 0."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+    from bm2f_tpu_torch.ops.gather_probe import (
+        row_gather_sum_cuda,
+        row_gather_sum_onehot_cuda,
+    )
+
+    for fn in (ms_deform_attn_cuda, row_gather_sum_cuda, row_gather_sum_onehot_cuda):
+        fn.launches = fn.launches_bf16 = 0
+    ms_deform_attn_bwd_cuda.launches = 0
+
+
+def serve(pred, images, path: str) -> list:
+    """`pred` answers `images`, each request ending in a synchronise; checks
+    the outputs' shapes and values. Returns the latencies in ms."""
+    latencies = []
+    for img in images:
+        t0 = time.perf_counter()
+        out = pred.predict(img)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        H, W = img.shape[:2]
+        K = pred.cfg.model.num_classes
+        if (out["semantic"].shape != (H, W, K) or out["semantic"].dtype != np.float32
+                or not np.isfinite(out["semantic"]).all()):
+            raise AssertionError(f"semantic output {out['semantic'].shape} bad")
+        inst = out["instances"]
+        if inst["masks"].shape != (100, H, W) or not np.isfinite(inst["scores"]).all():
+            raise AssertionError(f"instance output {inst['masks'].shape} bad")
+        if out["panoptic"][0].shape != (H, W):
+            raise AssertionError("panoptic output shape bad")
+    for img, ms in zip(images, latencies):
+        log("request", path=path, size="x".join(map(str, img.shape[:2])),
+            latency_ms=f"{ms:.2f}")
+    return latencies
+
+
+def stage_split(pred, image, path: str):
+    """The network's stages on one request, synchronised between stages.
+    Returns the unnormalised input batch."""
+    from bm2f_tpu_torch.models.maskformer import normalize_images
+
+    model, dev = pred.model, pred.device
+    x = torch.zeros((1, *image.shape))
+    x[0] = torch.from_numpy(image.astype(np.float32))
+    stages = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        xin = normalize_images(x.to(dev), pred.cfg.model).permute(0, 3, 1, 2).contiguous()
+        feats = model.backbone(xin)
+        torch.cuda.synchronize()
+        stages["backbone"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
+        mf, _, ms_feats = model.sem_seg_head.pixel_decoder(feats)
+        torch.cuda.synchronize()
+        stages["pixel_decoder"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
+        model.sem_seg_head.predictor(ms_feats, mf)
+        torch.cuda.synchronize()
+        stages["predictor"] = (time.perf_counter() - t) * 1e3
+    log("stages", path=path, **{k: f"{v:.2f}ms" for k, v in stages.items()})
+    return x
+
+
 def make_trainer(dev):
     """The full-width trainer at its seeded init, with the deformable
     projections perturbed (general sampling locations, not a grid)."""
@@ -288,7 +382,7 @@ def train_path(trainer, dev):
     torch.cuda.reset_peak_memory_stats()
 
     timer = StageTimer(dev)
-    ms_deform_attn_cuda.launches = ms_deform_attn_bwd_cuda.launches = 0
+    reset_counts()
     step_ms = []
     for i in range(TRAIN_STEPS):
         timer.start()
@@ -494,6 +588,146 @@ def grad_parity(trainer, dev, state: str):
                 raise AssertionError(f"{name}: |g_kernel - g_plain| / |g_plain| = {r}")
 
 
+def probe_path():
+    """Phase 12: the gather probe's main path at the production shapes, with
+    every count set to 0 just before and read just after. Each launch is the
+    probe's own: one checked bitwise against the plain version (the probe
+    raises on a difference), warm-up and timed ones. Returns (the probe's
+    lines, {kernel: launches})."""
+    from bm2f_tpu_torch.ops.gather_probe import (
+        row_gather_sum_cuda,
+        row_gather_sum_onehot_cuda,
+    )
+    from bm2f_tpu_torch.tools import roofline_microbench as probe
+
+    t0 = time.perf_counter()
+    runs = [(S, c, probe.IMPLS) for S in PROBE_LEVELS for c in (False, True)]
+    runs += [(S, c, ("scalar", "scalar_bf16")) for S in PROBE_K3_LEVELS for c in (False, True)]
+    reset_counts()
+    lines = []
+    for S, coherent, impls in runs:
+        lines += probe.bench_level(S, PROBE_ITERS, coherent=coherent, impls=impls)
+    counts = {"gather_rows_f32": row_gather_sum_cuda.launches,
+              "gather_rows_bf16": row_gather_sum_cuda.launches_bf16,
+              "gather_onehot_f32": row_gather_sum_onehot_cuda.launches,
+              "gather_onehot_bf16": row_gather_sum_onehot_cuda.launches_bf16}
+    per_call = 1 + 3 + PROBE_ITERS  # checked, warm-up, timed
+    impl_of = {"gather_rows_f32": "scalar", "gather_rows_bf16": "scalar_bf16",
+               "gather_onehot_f32": "onehot", "gather_onehot_bf16": "onehot_bf16"}
+    for name, impl in impl_of.items():
+        want = per_call * sum(impl in impls for _, _, impls in runs)
+        if counts[name] != want:
+            raise AssertionError(f"{name} launched {counts[name]} times, expected {want}")
+    if not all(ln["bitwise_equal"] and ln["max_err_vs_plain"] == 0.0 for ln in lines):
+        raise AssertionError("a probe kernel differs from the plain version")
+    log("probe", lines=len(lines), seconds=f"{time.perf_counter() - t0:.2f}",
+        **{f"{k}_launches": v for k, v in counts.items()})
+    return lines, counts
+
+
+def check_k1_bf16(dev, gen):
+    """Phase 13: K1 on a bf16 `value` against its plain version (which
+    upcasts `value` and computes in f32) on K1's edge cases and the 800x800
+    shapes at B=1 and 4, then timed at those shapes beside the plain version
+    and the bound. Returns (max abs error and timing at B=1)."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda, ms_deform_attn_plain
+
+    S_main = sum(h * w for h, w in MAIN_SHAPES)
+    cases = [(2, ((1, 7), (5, 1), (4, 6)), 777, (-0.2, 1.2)),
+             (1, ((1, 1), (3, 9)), 1001, (-0.2, 1.2)),
+             (1, MAIN_SHAPES, S_main, None), (4, MAIN_SHAPES, S_main, None)]
+    errs, timing = {}, {}
+    for B, shapes, Q, rng in cases:
+        v, loc, attn = deform_inputs(B, shapes, Q, gen, dev, rng)
+        v = v.to(torch.bfloat16)
+        got = ms_deform_attn_cuda(v, shapes, loc, attn)
+        torch.cuda.synchronize()
+        want = ms_deform_attn_plain(v, shapes, loc, attn)
+        # f32 arithmetic on the same bf16 rows, sums in another order
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = (got - want).abs().max().item()
+        log("check", kernel="ms_deform_attn_fwd_bf16", case="edge" if rng else "main",
+            B=B, Q=Q, max_abs_err=f"{err:.3e}")
+        if rng is None:
+            errs[B] = err
+            k_ms = cuda_ms(lambda: ms_deform_attn_cuda(v, shapes, loc, attn), 50)
+            p_ms = cuda_ms(lambda: ms_deform_attn_plain(v, shapes, loc, attn), 10)
+            bound, by, n_bytes, flops = deform_bound_ms(B, shapes, Q, 3, loc, value_bytes=2)
+            timing[B] = (k_ms, p_ms, bound, by)
+            log("time", kernel="ms_deform_attn_fwd_bf16", B=B, ms=f"{k_ms:.4f}",
+                plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+                bytes=n_bytes, flops=flops, share_of_bound=f"{bound / k_ms:.3f}")
+    return errs[1], timing[1]
+
+
+def serve_bf16(dev, images):
+    """Phase 14: bf16 serving. Returns {path: (K1-f32, K1-bf16) launches}."""
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.models import build_model
+    from bm2f_tpu_torch.models.maskformer import normalize_images
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+    from bm2f_tpu_torch.predict import Predictor
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+
+    pred = Predictor()
+    pred.setup(CONFIG, device="cuda", seed=0, overrides=BF16)
+    perturb_deformable(pred.model)  # the weights of phase 5
+    pred.predict(images[0])  # warm-up (cuDNN algorithm choice), not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    serve(pred, images, "bf16")
+    launches = {"bf16": (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)}
+    if launches["bf16"] != (0, 6 * len(images)) or ms_deform_attn_bwd_cuda.launches:
+        raise AssertionError(f"bf16 serving launched K1 f32, bf16 {launches['bf16']} "
+                             f"times and K2 {ms_deform_attn_bwd_cuda.launches}, expected "
+                             f"0, {6 * len(images)} and 0")
+    log("main_bf16", k1_f32_launches=launches["bf16"][0],
+        k1_bf16_launches=launches["bf16"][1],
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    x = stage_split(pred, images[0], "bf16")
+
+    # parity: the plain path in bf16, and the f32 kernel path, same weights
+    f32 = build_model(get_config(CONFIG), device=dev)
+    f32.load_state_dict(pred.model.state_dict())
+    with torch.no_grad():
+        xn = normalize_images(x.to(dev), pred.cfg.model)
+        outs = {"kernel": pred.model(xn), "plain": pred.model(xn, deform_impl="plain"),
+                "f32": f32(xn)}
+    del f32
+    for key in ("pred_logits", "pred_masks"):
+        a = outs["kernel"][key]
+        if a.dtype != torch.float32 or not torch.isfinite(a).all():
+            raise AssertionError(f"bf16 {key}: {a.dtype}, finite {torch.isfinite(a).all()}")
+        r_plain, r_f32 = rel_err(a, outs["plain"][key]), rel_err(a, outs["f32"][key])
+        log("parity_bf16", key=key, vs_plain_bf16=f"{r_plain:.3e}",
+            vs_f32_kernel=f"{r_f32:.3e}",
+            max_abs_vs_plain_bf16=f"{(a - outs['plain'][key]).abs().max().item():.3e}",
+            max_abs_vs_f32=f"{(a - outs['f32'][key]).abs().max().item():.3e}")
+        if not (r_plain <= BF16_VS_PLAIN_REL and r_f32 <= BF16_VS_F32_REL):
+            raise AssertionError(f"bf16 {key}: {r_plain:.3e} from the plain path "
+                                 f"(limit {BF16_VS_PLAIN_REL}), {r_f32:.3e} from f32 "
+                                 f"(limit {BF16_VS_F32_REL})")
+    del outs
+
+    # one request with the pixel decoder in f32: K1 reads an f32 value
+    state = pred.model.state_dict()
+    del pred
+    pred = Predictor()
+    pred.setup(CONFIG, device="cuda", seed=0, overrides=BF16_PD_F32)
+    pred.model.load_state_dict(state)
+    pred.predict(images[0])  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counts()
+    serve(pred, images[:1], "bf16_pixel_decoder_f32")
+    launches["bf16_pd_f32"] = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)
+    if launches["bf16_pd_f32"] != (6, 0):
+        raise AssertionError(f"pixel_decoder_f32 launched K1 f32, bf16 "
+                             f"{launches['bf16_pd_f32']} times, expected 6, 0")
+    log("main_bf16_pd_f32", k1_f32_launches=6, k1_bf16_launches=0)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -594,52 +828,19 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ms_deform_attn_cuda.launches = ms_deform_attn_bwd_cuda.launches = 0
-    latencies = []
-    for img in images:
-        t0 = time.perf_counter()
-        out = pred.predict(img)
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
-        H, W = img.shape[:2]
-        K = pred.cfg.model.num_classes
-        if out["semantic"].shape != (H, W, K) or not np.isfinite(out["semantic"]).all():
-            raise AssertionError(f"semantic output {out['semantic'].shape} bad")
-        inst = out["instances"]
-        if inst["masks"].shape != (100, H, W) or not np.isfinite(inst["scores"]).all():
-            raise AssertionError(f"instance output {inst['masks'].shape} bad")
-        if out["panoptic"][0].shape != (H, W):
-            raise AssertionError("panoptic output shape bad")
+    reset_counts()
+    serve(pred, images, "f32")
     launches, k2_serve = ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches
-    if launches != 6 * len(images):
-        raise AssertionError(f"ms_deform_attn_fwd launched {launches} times, "
-                             f"expected {6 * len(images)}")
+    if (launches, ms_deform_attn_cuda.launches_bf16) != (6 * len(images), 0):
+        raise AssertionError(f"ms_deform_attn_fwd launched {launches} times in f32 and "
+                             f"{ms_deform_attn_cuda.launches_bf16} in bf16, expected "
+                             f"{6 * len(images)} and 0")
     if k2_serve != 0:  # serving takes no gradient
         raise AssertionError(f"ms_deform_attn_bwd launched {k2_serve} times in serving")
-    for (h, w), ms in zip(REQUESTS, latencies):
-        log("request", size=f"{h}x{w}", latency_ms=f"{ms:.2f}")
     log("main", launches=launches, k2_launches=k2_serve,
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
-
-    # stage split of the first request (synchronised between stages)
     model = pred.model
-    x = torch.zeros((1, *images[0].shape))
-    x[0] = torch.from_numpy(images[0].astype(np.float32))
-    stages = {}
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        xin = normalize_images(x.to(dev), pred.cfg.model).permute(0, 3, 1, 2).contiguous()
-        feats = model.backbone(xin)
-        torch.cuda.synchronize()
-        stages["backbone"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
-        mf, _, ms_feats = model.sem_seg_head.pixel_decoder(feats)
-        torch.cuda.synchronize()
-        stages["pixel_decoder"], t = (time.perf_counter() - t) * 1e3, time.perf_counter()
-        model.sem_seg_head.predictor(ms_feats, mf)
-        torch.cuda.synchronize()
-        stages["predictor"] = (time.perf_counter() - t) * 1e3
-    log("stages", **{k: f"{v:.2f}ms" for k, v in stages.items()})
+    x = stage_split(pred, images[0], "f32")
 
     # -- 6. forward parity: kernel path vs plain path -----------------------
     with torch.no_grad():
@@ -670,16 +871,31 @@ def main() -> int:
 
     # -- 11. gradient parity at the trained state -----------------------------
     grad_parity(trainer, dev, "trained")
+    del trainer
+    torch.cuda.empty_cache()
 
-    # -- 12. result ---------------------------------------------------------
+    # -- 12. the gather probe (K3, K4) ------------------------------------------
+    probe_lines, probe_counts = probe_path()
+    torch.cuda.empty_cache()
+
+    # -- 13. K1 on a bf16 value ---------------------------------------------------
+    k1b_err, (k1b_ms, k1b_plain_ms, k1b_bound, k1b_by) = check_k1_bf16(dev, gen)
+    torch.cuda.empty_cache()
+
+    # -- 14. bf16 serving -----------------------------------------------------------
+    bf16_launches = serve_bf16(dev, images)
+
+    # -- 15. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
+    k1_pd_f32 = bf16_launches["bf16_pd_f32"][0]
     kernels = [{
         "name": "ms_deform_attn_fwd",
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
-        "launches": launches + k1_train,
-        "launches_by_path": {"serve": launches, "train": k1_train},
+        "launches": launches + k1_train + k1_pd_f32,
+        "launches_by_path": {"serve": launches, "train": k1_train,
+                             "serve_bf16_pixel_decoder_f32": k1_pd_f32},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -699,7 +915,43 @@ def main() -> int:
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
+    }, {
+        "name": "ms_deform_attn_fwd_bf16",
+        "route": "cuda",
+        "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+        "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
+        "launches": bf16_launches["bf16"][1],
+        "launches_by_path": {"serve_bf16": bf16_launches["bf16"][1]},
+        "max_abs_err": k1b_err,
+        "ms": k1b_ms,
+        "plain_ms": k1b_plain_ms,
+        "bound_ms": k1b_bound,
+        "bound_by": k1b_by,
+        "library_ms": None,
     }]
+    # the probe's kernels, each at its row's shapes (S=2500, random addresses)
+    for name, impl, source, line_no in (
+            ("gather_rows_f32", "scalar", "gather_rows.cu", 59),
+            ("gather_rows_bf16", "scalar_bf16", "gather_rows.cu", 110),
+            ("gather_onehot_f32", "onehot", "gather_onehot_mma.cu", 80),
+            ("gather_onehot_bf16", "onehot_bf16", "gather_onehot_mma.cu", 97)):
+        row = next(ln for ln in probe_lines
+                   if ln["impl"] == impl and all(ln[k] == v for k, v in PROBE_ROW.items()))
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"bm2f_tpu_torch/csrc/{source}",
+            "replaces": f"tools/roofline_microbench.py:{line_no}",
+            "launches": probe_counts[name],
+            "launches_by_path": {"probe": probe_counts[name]},
+            "max_abs_err": max(ln["max_err_vs_plain"] for ln in probe_lines
+                               if ln["impl"] == impl),
+            "ms": row["ms_per_level_layer"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["embedding_bag_ms"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,10 @@
 """The port on the card: its hand-written CUDA kernels against their plain
-PyTorch versions, and the full-width R50 Mask2Former on the card against the
-from-scratch torch reference forward of tests/torch_oracle.py (run on the
-CPU) on one detectron2-named state dict. Imports no JAX, so that it runs on
-a machine with a card and no JAX:
+PyTorch versions (K1 on f32 and bf16 values, K2, the probe's K3 and K4), the
+full-width R50 Mask2Former on the card against the from-scratch torch
+reference forward of tests/torch_oracle.py (run on the CPU) on one
+detectron2-named state dict, and the full-width bf16 forward against the f32
+kernel path. Imports no JAX, so that it runs on a machine with a card and no
+JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -22,6 +24,12 @@ from bm2f_tpu_torch.ops.deform_attn import (
     ms_deform_attn_cuda,
     ms_deform_attn_plain,
 )
+from bm2f_tpu_torch.ops.gather_probe import (
+    row_gather_sum_cuda,
+    row_gather_sum_onehot_cuda,
+    row_gather_sum_plain,
+)
+from bm2f_tpu_torch.tools.roofline_microbench import make_inputs
 from bm2f_tpu_torch.utils.convert_weights import load_d2_state_dict
 from torch_oracle import make_r50_m2f_state_dict, torch_mask2former_forward
 
@@ -41,24 +49,51 @@ def require_cuda() -> torch.device:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", CASES)
-def test_ms_deform_attn_kernel_matches_plain(case):
+def test_ms_deform_attn_kernel_matches_plain(case, dtype):
+    """K1 on an f32 or a bf16 `value` (bf16 rows, f32 arithmetic, as the
+    plain version, which upcasts `value`): one launch, counted by dtype."""
     dev = require_cuda()
     B, M, D, P, Q, shapes = case
     rng = np.random.RandomState(0)
     S, L = sum(h * w for h, w in shapes), len(shapes)
-    value = torch.from_numpy(rng.randn(B, S, M, D).astype(np.float32)).to(dev)
+    value = torch.from_numpy(rng.randn(B, S, M, D).astype(np.float32)).to(dev, dtype)
     loc = torch.from_numpy(
         (rng.rand(B, Q, M, L, P, 2) * 1.4 - 0.2).astype(np.float32)).to(dev)
     attn = torch.from_numpy(
         (rng.rand(B, Q, M, L, P) / (L * P)).astype(np.float32)).to(dev)
-    before = ms_deform_attn_cuda.launches
-    got = ms_deform_attn(value, shapes, loc, attn)
+    before = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)
+    with torch.no_grad():
+        got = ms_deform_attn(value, shapes, loc, attn)
     torch.cuda.synchronize()
-    assert ms_deform_attn_cuda.launches == before + 1
+    bf16 = dtype == torch.bfloat16
+    assert (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16) == (
+        before[0] + (not bf16), before[1] + bf16)
+    assert got.dtype == torch.float32
     want = ms_deform_attn_plain(value, shapes, loc, attn)
     # f32, at most 4*L*P weighted terms summed in another order
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coherent", [False, True], ids=["random", "coherent"])
+@pytest.mark.parametrize("S", [40, 625, 2500])
+def test_gather_probe_kernels_bitwise_equal_plain(S, coherent):
+    """K3 and K4, f32 and bf16 tables, at a middle size: BM 4, QP 1000 (not
+    a multiple of K4's 64-query pass), K 4; a few indices out of range."""
+    dev = require_cuda()
+    table, idx = make_inputs(S, coherent, 4, 1000, 4)
+    idx[1, 2, :4] = [-1, S, S + 7, -5]
+    t, i = torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
+    want = row_gather_sum_plain(t, i)
+    for dtype in (torch.float32, torch.bfloat16):
+        tt = t.to(dtype)
+        for fn in (row_gather_sum_cuda, lambda a, b: row_gather_sum_onehot_cuda(a, b, 128)):
+            got = fn(tt, i)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (dtype, (got - want).abs().max().item())
+    assert row_gather_sum_cuda.launches_bf16 > 0 and row_gather_sum_onehot_cuda.launches_bf16 > 0
 
 
 def _deform_inputs(case, dev, seed=0):
@@ -193,3 +228,35 @@ def test_full_r50_train_step_gradients_match_plain_path(no_tf32):
     assert np.isfinite(lk) and abs(lk - lp) <= 1e-4 * abs(lp)
     for name, a, b in zip(names, gk, gp):
         assert (a - b).norm() <= 1e-3 * b.norm(), name
+
+
+@pytest.mark.cuda
+def test_full_r50_bf16_forward_matches_f32_kernel_path(no_tf32):
+    """coco_instance_r50 at full width with model.dtype=bfloat16 (the pixel
+    decoder in bf16: K1 on a bf16 value in every encoder layer) against the
+    f32 model on the same weights, norm-relative on pred_logits and
+    pred_masks, and against its own plain path in bf16. Read on an H100:
+    7.4e-3 (logits) to 2.0e-2 (masks) both ways; held at 0.05, 2.5x the
+    largest reading, as chip_smoke.py."""
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+
+    dev = require_cuda()
+    over = {"model.dtype": "bfloat16", "model.pixel_decoder_f32": False}
+    bf16 = build_model(get_config("coco_instance_r50", over), device=dev)
+    perturb_deformable(bf16)
+    f32 = build_model(get_config("coco_instance_r50"), device=dev)
+    f32.load_state_dict(bf16.state_dict())
+    images = torch.from_numpy(np.random.RandomState(4).randn(2, 256, 320, 3)
+                              .astype(np.float32)).to(dev)
+    with torch.no_grad():
+        before = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)
+        ours = bf16(images)
+        torch.cuda.synchronize()
+        assert (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16) == (
+            before[0], before[1] + 6)
+        ref, plain = f32(images), bf16(images, deform_impl="plain")
+    for key in ("pred_logits", "pred_masks"):
+        assert ours[key].dtype == torch.float32 and torch.isfinite(ours[key]).all()
+        r_f32 = ((ours[key] - ref[key]).norm() / ref[key].norm()).item()
+        r_plain = ((ours[key] - plain[key]).norm() / plain[key].norm()).item()
+        assert r_f32 <= 0.05 and r_plain <= 0.05, (key, r_f32, r_plain)
