@@ -22,12 +22,14 @@
 // bf16 tables use mma.sync m16n8k16 (bf16 in, f32 accumulate); f32 tables use
 // TF32 mma.sync m16n8k8.
 //
-// What bounds it on the H100: operations. The product does 2 * QP * S * 128
-// * K operations per bm, 1.09e12 at the production shapes (BM 32, QP 13312,
-// K 4, S 2500): 1.10 ms at 989 TFLOP/s bf16, 2.20 ms at 495 TFLOP/s TF32,
-// against 0.079 ms for the bytes. The one-hot formulation only pays where a
-// gather's descriptors are dearer than S * 128 multiply-adds each, which is
-// the question the probe asks of the card.
+// What bounds it on the H100: the function it computes needs only bytes,
+// 0.079 ms at the production shapes (BM 32, QP 13312, K 4, S 2500), as K3's.
+// The one-hot formulation adds work the function does not need: 2 * QP * S
+// * 128 * K operations per bm, 1.09e12 at those shapes, 1.10 ms at 989
+// TFLOP/s bf16 and 2.20 ms at 495 TFLOP/s TF32, so this kernel cannot come
+// within 14x (bf16) or 28x (TF32) of the function's bound. The formulation
+// only pays where a gather's descriptors are dearer than S * 128
+// multiply-adds each, which is the question the probe asks of the card.
 //
 // What the design does about it: a block of 16 warps takes `qt` queries of one
 // bm in passes of 64 (4 row blocks of 16 queries x 4 column blocks of 32

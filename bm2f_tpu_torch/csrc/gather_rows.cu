@@ -26,6 +26,8 @@
 // its float4 of the output row. The output write, 82 % of the bytes, is one
 // coalesced 512-byte store per warp. Nothing is staged in shared memory.
 
+#include "bf16_bits.cuh"
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,22 +36,12 @@ namespace {
 constexpr int kRow = 128;  // table row width (channels)
 constexpr int kWarpsPerBlock = 8;
 
-struct Bf16Bits {  // a bf16 value as its 16 bits
-  uint16_t bits;
-};
-
 __device__ __forceinline__ float4 load_row4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// 4 bf16 values (8 bytes) upcast to f32: a bf16 is the top half of an f32.
-// Little-endian: the value at the lower address is the low half of a word.
 __device__ __forceinline__ float4 load_row4(const Bf16Bits* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(raw.x << 16),
-                     __uint_as_float(raw.x & 0xffff0000u),
-                     __uint_as_float(raw.y << 16),
-                     __uint_as_float(raw.y & 0xffff0000u));
+  return load_bf16x4(p);
 }
 
 template <typename T>

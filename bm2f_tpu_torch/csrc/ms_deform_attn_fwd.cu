@@ -31,6 +31,7 @@
 // does (its patch table is cast to f32, deform_attn_pallas.py:272). A warp's
 // corner read is then 64 bytes, and `value` is half the bytes.
 
+#include "bf16_bits.cuh"
 #include "ms_deform_attn_common.cuh"
 
 #include <stdint.h>
@@ -41,17 +42,9 @@ using msda::kFull;
 using msda::kMaxDChunks;
 using msda::kWarpsPerBlock;
 
-struct Bf16Bits {  // a bf16 value as its 16 bits
-  uint16_t bits;
-};
-
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 
-// a bf16 is the top half of an f32
-__device__ __forceinline__ float load_f32(const Bf16Bits* p) {
-  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p))
-                         << 16);
-}
+__device__ __forceinline__ float load_f32(const Bf16Bits* p) { return load_bf16(p); }
 
 template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)

@@ -7,9 +7,9 @@ layer computes in the dtype of its input, casting its weights to it.
 `Linear`, `Conv2d`, `FrozenBatchNorm` and `MultiHeadAttention` run wholly in
 that dtype (attention's softmax in f32); `LayerNorm` and `GroupNorm` take
 their statistics and affine map in f32 and return the input's dtype. The
-models cast their inputs once, where the JAX package does. Outside autograd
-a weight's cast copy is kept (`cast`), so that a bf16 request casts each
-weight once and not at every call."""
+models cast their inputs once, where the JAX package does. A model served
+in bf16 has its weights cast once instead (`cast_weights_`, called by
+`MaskFormer.cast_weights_for_inference_`), so that a request casts none."""
 
 from __future__ import annotations
 
@@ -38,20 +38,29 @@ class FrozenBatchNorm(nn.Module):
 
 
 def cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
-    """A weight `p` in `dtype`. Where autograd does not track `p`, its copy
-    in `dtype` is kept on `p` and reused until `p` changes (in place, which
-    bumps its version, or by a new storage): one cast launch per weight and
-    not one per call, which on the card is host time."""
-    if p is None or p.dtype == dtype:
-        return p
-    if torch.is_grad_enabled() and p.requires_grad:
-        return p.to(dtype)
-    key = (dtype, p._version, p.data_ptr())
-    kept = getattr(p, "_cast_copy", None)
-    if kept is None or kept[0] != key:
-        kept = (key, p.detach().to(dtype))
-        p._cast_copy = kept
-    return kept[1]
+    """A weight `p` in `dtype`: `p` itself when it is already (f32 training,
+    or a model whose weights `cast_weights_` cast once), else a cast that
+    autograd follows back to the f32 parameter."""
+    return p if p is None else p.to(dtype)
+
+
+@torch.no_grad()
+def cast_weights_(module: nn.Module, dtype: torch.dtype) -> None:
+    """For inference in `dtype`: casts once, in place, every weight that
+    `module`'s layers would cast to their input's dtype at each call, that
+    is every floating parameter and buffer outside LayerNorm and GroupNorm
+    (which compute in f32 and keep f32 weights). A request then casts no
+    weight, which on the card saves a launch per weight of host time. The
+    parameters are no longer f32: not for training."""
+    for m in module.modules():
+        if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            continue
+        for p in m.parameters(recurse=False):
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
+        for name, b in m.named_buffers(recurse=False):
+            if b.is_floating_point():
+                setattr(m, name, b.to(dtype))
 
 
 class Linear(nn.Linear):

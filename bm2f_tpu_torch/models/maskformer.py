@@ -10,7 +10,8 @@ package.
 `model.dtype` "bfloat16" computes in bf16 as the JAX `build_model` does
 (parameters stay f32; see `models/layers.py`): the backbone and the
 predictor in bf16, the pixel decoder in f32 when `pixel_decoder_f32` is set
-and in bf16 otherwise; `pred_*` and `aux_*` are f32 either way.
+and in bf16 otherwise; `pred_*` and `aux_*` are f32 either way. Serving
+casts the weights once (`MaskFormer.cast_weights_for_inference_`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from bm2f_tpu_torch.config import Config, ModelConfig
-from bm2f_tpu_torch.models.layers import init_parameters
+from bm2f_tpu_torch.models.layers import cast_weights_, init_parameters
 from bm2f_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from bm2f_tpu_torch.models.resnet import (
     RESNET_FEATURE_CHANNELS,
@@ -100,6 +101,15 @@ class MaskFormer(nn.Module):
         on the card, for parity checks against the kernel."""
         x = images.float().permute(0, 3, 1, 2).contiguous()
         return self.sem_seg_head(self.backbone(x), deform_impl)
+
+    def cast_weights_for_inference_(self) -> "MaskFormer":
+        """Casts each part's weights, once, to the dtype the part computes
+        in (`layers.cast_weights_`; norms keep f32). For serving: a bf16
+        model then casts no weight per request. A no-op in f32."""
+        for part in (self.backbone, self.sem_seg_head.pixel_decoder,
+                     self.sem_seg_head.predictor):
+            cast_weights_(part, part.dtype)
+        return self
 
 
 def build_model(cfg: Config, device="cuda", seed: int = 0) -> MaskFormer:

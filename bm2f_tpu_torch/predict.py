@@ -28,7 +28,8 @@ class Predictor:
         """No weights: seeded random init. `.pkl`/`.pth`: a detectron2
         checkpoint. `overrides` set config fields, for example the bench's
         bf16 serving: {"model.dtype": "bfloat16", "model.pixel_decoder_f32":
-        False} (the weights stay f32 and serve either dtype)."""
+        False} (the same f32 weights serve either dtype). Once loaded, the
+        weights are cast to the dtype each part computes in."""
         self.cfg = get_config(config, overrides)
         self.device = torch.device(device)
         self.model = build_model(self.cfg, device=self.device, seed=seed)
@@ -40,6 +41,7 @@ class Predictor:
             raise NotImplementedError(
                 f"{weights!r}: loading JAX (orbax) checkpoints is ROADMAP "
                 "queue 1 item 9")
+        self.model.cast_weights_for_inference_()
 
     @torch.no_grad()
     def predict(self, image: np.ndarray) -> Dict:

@@ -12,7 +12,11 @@ is not on the init's grid), answers one warm-up request, then:
      the host, panoptic relabel;
   2. profiles one request with `torch.profiler`, writes the op tables to
      --out (default output/profile_request.txt) and prints the device-busy
-     share of the profiled request and of the unprofiled median.
+     share of the profiled request and of the unprofiled median;
+  3. with `--cold HxW ...`, for each size not yet served: its first request
+     (cold) step by step, the growth of the allocator's reserved memory in
+     that request, then the warm median over --repeats requests of that
+     size, and the cold request's excess over the warm one per step.
 `--set KEY=VALUE` overrides a config field (a Python literal), as the train
 entry point's does; the two above give the bench's bf16 serving.
 Needs a card; exits non-zero without one.
@@ -109,28 +113,27 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="output/profile_request.txt")
     ap.add_argument("--set", action="append", default=[], type=parse_override,
                     metavar="KEY=VALUE")
+    ap.add_argument("--cold", nargs="*", default=[], metavar="HxW",
+                    help="sizes other than --size: each one's first request, "
+                         "then its warm median")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_request: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    h, w = (int(v) for v in args.size.split("x"))
     pred = Predictor()
     pred.setup("coco_instance_r50", device="cuda", seed=0, overrides=dict(args.set))
     perturb_deformable(pred.model)
-    image = np.random.RandomState(0).randint(0, 256, (h, w, 3)).astype(np.uint8)
+    image = make_image(args.size)
     pred.predict(image)  # warm-up
 
-    runs = [timed_request(pred, image) for _ in range(args.repeats)]
-    steps = [k for k in runs[0] if k != "segments"]
-    med = {k: statistics.median(r[k] for r in runs) for k in steps}
+    med, segments = warm_median(pred, image, args.repeats)
     print(f"device={torch.cuda.get_device_name(0)!r} size={args.size} "
-          f"repeats={args.repeats} segments={runs[0]['segments']} "
+          f"repeats={args.repeats} segments={segments} "
           f"dtype={pred.cfg.model.dtype} "
           f"pixel_decoder_f32={pred.cfg.model.pixel_decoder_f32}")
-    print("steps_ms_median " + " ".join(f"{k}={v:.2f}" for k, v in med.items())
-          + f" total={sum(med.values()):.2f}")
+    print("steps_ms_median " + steps_line(med))
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -158,7 +161,38 @@ def main(argv=None) -> int:
     print(table_cpu.splitlines()[0])
     for line in table_cpu.splitlines()[1:14]:
         print(line)
+
+    for size in args.cold:
+        image = make_image(size)
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        cold = timed_request(pred, image)
+        grown = (torch.cuda.memory_reserved() - reserved) / 2**20
+        cold.pop("segments")
+        warm, _ = warm_median(pred, image, args.repeats)
+        print(f"cold size={size} reserved_growth_mib={grown:.1f} " + steps_line(cold))
+        print(f"warm size={size} " + steps_line(warm))
+        print(f"cold_excess size={size} "
+              + steps_line({k: cold[k] - warm[k] for k in cold}))
     return 0
+
+
+def make_image(size: str) -> np.ndarray:
+    """A seeded random (H, W, 3) uint8 image of `size` "HxW"."""
+    h, w = (int(v) for v in size.split("x"))
+    return np.random.RandomState(0).randint(0, 256, (h, w, 3)).astype(np.uint8)
+
+
+def warm_median(pred: Predictor, image: np.ndarray, repeats: int):
+    """({step: median ms over `repeats` timed requests}, segments found)."""
+    runs = [timed_request(pred, image) for _ in range(repeats)]
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0] if k != "segments"}
+    return med, runs[0]["segments"]
+
+
+def steps_line(steps: dict) -> str:
+    return (" ".join(f"{k}={v:.2f}" for k, v in steps.items())
+            + f" total={sum(steps.values()):.2f}")
 
 
 if __name__ == "__main__":

@@ -26,7 +26,13 @@ near each query's own position in the level.
 Each (impl, S) prints one JSON line under the JAX tool's keys (less
 `unroll_q`), with `max_err_vs_plain` (against the plain version on the f32 table, at every S)
 in place of `max_err_vs_xla`, and `bound_ms`, `bound_by`, `share_of_bound`,
-`plain_ms` and `embedding_bag_ms` (one `F.embedding_bag(mode="sum")` call on
+`onehot_tc_bound_ms`, `plain_ms` and `embedding_bag_ms`. Every impl
+computes one function, K gathered rows added, which needs only bytes:
+`bound_ms` is its bytes over the HBM rate for all four, and
+`share_of_bound` is `bound_ms` over the impl's time. `onehot_tc_bound_ms`
+(null for K3) is the one-hot products' operations over the tensor cores'
+rate, the ceiling of that formulation only. `embedding_bag_ms` is one
+`F.embedding_bag(mode="sum")` call on
 the same rows, a yardstick the port never calls; on a bf16 table it returns
 bf16). Times are CUDA-event means over --iters launches with a warm L2, on
 the card the line names. A line whose kernel is not bitwise equal to the
@@ -102,15 +108,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(impl: str, bm: int, S: int, k: int, qp: int, n_rows: int):
-    """(least time in ms, what bounds it): the bytes over the HBM rate, and
-    for the one-hot impls the larger of that and their operations over the
-    tensor cores' rate."""
+def bound(impl: str, bm: int, k: int, qp: int, n_rows: int):
+    """(least time in ms, what bounds it) of the function every impl
+    computes, a sum of K gathered rows: its bytes over the HBM rate. It
+    needs no multiply, so the one-hot impls share this bound."""
     itemsize = 2 if impl.endswith("bf16") else 4
-    t_bytes = gather_bytes(bm, k, qp, n_rows, itemsize) / PEAK_BYTES_PER_S
-    t_ops = (onehot_ops(bm, S, k, qp) / PEAK_TC_OPS_PER_S[impl]
-             if impl.startswith("onehot") else 0.0)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return gather_bytes(bm, k, qp, n_rows, itemsize) / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def onehot_tc_bound_ms(impl: str, bm: int, S: int, k: int, qp: int):
+    """The least time of the one-hot formulation's dense products on the
+    tensor cores (its operations over their rate, TF32 or bf16), for the
+    one-hot impls; None for the others. Work that the function does not
+    need: a ceiling of the formulation, not of the function."""
+    if not impl.startswith("onehot"):
+        return None
+    return onehot_ops(bm, S, k, qp) / PEAK_TC_OPS_PER_S[impl] * 1e3
 
 
 def bench_level(S: int, iters: int, coherent: bool = False, impls=None,
@@ -145,7 +158,8 @@ def bench_level(S: int, iters: int, coherent: bool = False, impls=None,
                 "bitwise_equal": torch.equal(out, want),
                 "addresses": "coherent" if coherent else "random",
                 "qt": qt, "k": k, "bm": bm, "qp": qp, "device": str(dev)}
-        line["bound_ms"], line["bound_by"] = bound(name, bm, S, k, qp, n_rows)
+        line["bound_ms"], line["bound_by"] = bound(name, bm, k, qp, n_rows)
+        line["onehot_tc_bound_ms"] = onehot_tc_bound_ms(name, bm, S, k, qp)
         line.update(share_of_bound=None, plain_ms=None, embedding_bag_ms=None)
         del out
         if dev.type == "cuda":

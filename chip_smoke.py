@@ -687,9 +687,10 @@ def serve_bf16(dev, images):
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     x = stage_split(pred, images[0], "bf16")
 
-    # parity: the plain path in bf16, and the f32 kernel path, same weights
-    f32 = build_model(get_config(CONFIG), device=dev)
-    f32.load_state_dict(pred.model.state_dict())
+    # parity: the plain path in bf16, and the f32 kernel path on the same f32
+    # weights (drawn again from the seeds: the Predictor's are cast to bf16)
+    f32 = build_model(get_config(CONFIG), device=dev, seed=0)
+    perturb_deformable(f32)
     with torch.no_grad():
         xn = normalize_images(x.to(dev), pred.cfg.model)
         outs = {"kernel": pred.model(xn), "plain": pred.model(xn, deform_impl="plain"),
@@ -711,11 +712,10 @@ def serve_bf16(dev, images):
     del outs
 
     # one request with the pixel decoder in f32: K1 reads an f32 value
-    state = pred.model.state_dict()
     del pred
     pred = Predictor()
     pred.setup(CONFIG, device="cuda", seed=0, overrides=BF16_PD_F32)
-    pred.model.load_state_dict(state)
+    perturb_deformable(pred.model)
     pred.predict(images[0])  # warm-up, not counted
     torch.cuda.synchronize()
     reset_counts()
@@ -724,7 +724,8 @@ def serve_bf16(dev, images):
     if launches["bf16_pd_f32"] != (6, 0):
         raise AssertionError(f"pixel_decoder_f32 launched K1 f32, bf16 "
                              f"{launches['bf16_pd_f32']} times, expected 6, 0")
-    log("main_bf16_pd_f32", k1_f32_launches=6, k1_bf16_launches=0)
+    log("main_bf16_pd_f32", k1_f32_launches=launches["bf16_pd_f32"][0],
+        k1_bf16_launches=launches["bf16_pd_f32"][1])
     return launches
 
 
@@ -948,9 +949,13 @@ def main() -> int:
                                if ln["impl"] == impl),
             "ms": row["ms_per_level_layer"],
             "plain_ms": row["plain_ms"],
+            # the function's bound (bytes), the same for K3 and K4
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["embedding_bag_ms"],
+            # K4 only: its one-hot products on the tensor cores, apart
+            **({"onehot_tc_bound_ms": row["onehot_tc_bound_ms"]}
+               if row["onehot_tc_bound_ms"] is not None else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)

@@ -251,23 +251,40 @@ def test_bf16_predictor_request_on_cpu():
 
 
 def test_kept_cast_copy_follows_the_parameter():
-    """Outside autograd a layer keeps its weight's bf16 copy, and casts again
-    once the weight changes in place (a load or an optimizer step) or is
-    replaced; under autograd it casts every call, so gradients reach the f32
-    parameter."""
+    """A served model keeps its weights cast once
+    (`cast_weights_for_inference_`, which `Predictor.setup` calls): bf16 in
+    the parts that compute in bf16, f32 in the pixel decoder with
+    `pixel_decoder_f32`, f32 in every norm; `cast` hands a kept weight back
+    as it is; the forward equals, bit for bit, the same model's that casts
+    at every call; a load copies into the kept dtype. Under autograd an f32
+    parameter is cast at every call, so gradients reach it."""
+    images = torch.from_numpy(np.random.RandomState(3).randn(1, 64, 64, 3).astype(np.float32))
+    for over in (BF16, BF16_PD_F32):
+        cfg = get_config("coco_instance_r50", {**SMALL, **over})
+        per_call = build_model(cfg, device="cpu")
+        once = build_model(cfg, device="cpu").cast_weights_for_inference_()
+        head = once.sem_seg_head
+        pd_dtype = torch.float32 if cfg.model.pixel_decoder_f32 else torch.bfloat16
+        for part, dtype in ((once.backbone, torch.bfloat16), (head.pixel_decoder, pd_dtype),
+                            (head.predictor, torch.bfloat16)):
+            for m in part.modules():
+                norm = isinstance(m, (torch.nn.LayerNorm, torch.nn.GroupNorm))
+                for t in [*m.parameters(recurse=False), *m.buffers(recurse=False)]:
+                    assert t.dtype == (torch.float32 if norm else dtype), type(m)
+        w = head.predictor.class_embed.weight
+        assert cast(w, torch.bfloat16) is w
+        with torch.no_grad():
+            a, b = once(images), per_call(images)
+            for key in ("pred_logits", "pred_masks"):
+                torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
+            once.load_state_dict(per_call.state_dict())
+        assert head.predictor.class_embed.weight.dtype == torch.bfloat16
+        torch.testing.assert_close(head.predictor.class_embed.weight,
+                                   per_call.sem_seg_head.predictor.class_embed.weight
+                                   .to(torch.bfloat16), rtol=0, atol=0)
+
     lin = Linear(4, 3)
     x = torch.randn(2, 4).to(torch.bfloat16)
-    with torch.no_grad():
-        first = cast(lin.weight, torch.bfloat16)
-        assert cast(lin.weight, torch.bfloat16) is first
-        lin.weight.add_(1.0)
-        again = cast(lin.weight, torch.bfloat16)
-        assert again is not first
-        torch.testing.assert_close(again.float(), lin.weight.to(torch.bfloat16).float())
-        lin.load_state_dict({"weight": torch.zeros(3, 4), "bias": torch.zeros(3)})
-        assert not lin(x).any()
-        lin.weight.data = torch.ones(3, 4)
-        assert cast(lin.weight, torch.bfloat16).eq(1).all()
     assert cast(lin.weight, torch.float32) is lin.weight
     lin(x).float().sum().backward()
     assert lin.weight.grad is not None and lin.weight.grad.dtype == torch.float32

@@ -117,6 +117,12 @@ def test_probe_cli_on_cpu(capsys, monkeypatch):
         n_bytes = gather_bytes(2, 4, 128, 2 * S_SMOKE, itemsize)
         assert ln["bound_ms"] == pytest.approx(n_bytes / 3.35e12 * 1e3)
         assert ln["bound_by"] == "bytes"
+        tc = ln["onehot_tc_bound_ms"]
+        if ln["impl"].startswith("onehot"):
+            peak = 989e12 if ln["impl"].endswith("bf16") else 495e12
+            assert tc == pytest.approx(onehot_ops(2, S_SMOKE, 4, 128) / peak * 1e3)
+        else:
+            assert tc is None
     monkeypatch.setenv("ROOFLINE_IMPLS", "onehot,scalar_bf16")
     assert probe.main(["--device", "cpu", "--smoke"]) == 0
     names = [json.loads(ln)["impl"] for ln in capsys.readouterr().out.splitlines()]
@@ -173,13 +179,18 @@ def test_counts_match_hand_counts():
     assert gather_bytes(BM, K, QP, BM * S, 4) == 6_815_744 + 40_960_000 + 218_103_808
     assert gather_bytes(BM, K, QP, BM * S, 2) == 6_815_744 + 20_480_000 + 218_103_808
     assert onehot_ops(BM, S, K, QP) == 1_090_519_040_000
-    ms, by = probe.bound("scalar", BM, S, K, QP, BM * S)
-    assert by == "bytes" and ms == pytest.approx(265_879_552 / 3.35e12 * 1e3)
-    assert ms == pytest.approx(0.0794, abs=5e-5)
-    ms, by = probe.bound("onehot_bf16", BM, S, K, QP, BM * S)
-    assert by == "operations" and ms == pytest.approx(1.1027, abs=5e-4)
-    ms, by = probe.bound("onehot", BM, S, K, QP, BM * S)
-    assert by == "operations" and ms == pytest.approx(2.2031, abs=5e-4)
+    # K3 and K4 compute one function, which needs only bytes: one bound
+    for impl in ("scalar", "onehot"):
+        ms, by = probe.bound(impl, BM, K, QP, BM * S)
+        assert by == "bytes" and ms == pytest.approx(265_879_552 / 3.35e12 * 1e3)
+        assert ms == pytest.approx(0.0794, abs=5e-5)
+    for impl in ("scalar_bf16", "onehot_bf16"):
+        ms, by = probe.bound(impl, BM, K, QP, BM * S)
+        assert by == "bytes" and ms == pytest.approx(245_399_552 / 3.35e12 * 1e3)
+    # the one-hot products' own ceiling on the tensor cores, apart
+    assert probe.onehot_tc_bound_ms("scalar", BM, S, K, QP) is None
+    assert probe.onehot_tc_bound_ms("onehot_bf16", BM, S, K, QP) == pytest.approx(1.1027, abs=5e-4)
+    assert probe.onehot_tc_bound_ms("onehot", BM, S, K, QP) == pytest.approx(2.2031, abs=5e-4)
     # rows read: distinct in-range (bm, row) pairs
     idx = torch.tensor([[[0, 1, 1, -1]], [[1, 1, 7, 3]]], dtype=torch.int32)
     assert rows_read(idx, 5) == 2 + 2
