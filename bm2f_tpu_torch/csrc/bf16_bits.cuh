@@ -26,3 +26,15 @@ __device__ __forceinline__ float4 load_bf16x4(const Bf16Bits* p) {
                      __uint_as_float(raw.y << 16),
                      __uint_as_float(raw.y & 0xffff0000u));
 }
+
+// 8 bf16 values (16 bytes, 16-byte aligned), upcast to f32 in v[0:8],
+// lowest address first.
+__device__ __forceinline__ void load_bf16x8(const Bf16Bits* p, float* v) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}

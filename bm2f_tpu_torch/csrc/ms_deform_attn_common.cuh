@@ -1,7 +1,11 @@
 // Shared by the deformable-attention forward (ms_deform_attn_fwd.cu, K1) and
-// backward (ms_deform_attn_bwd.cu, K2): the level table and the bilinear
-// corners of one sample. The backward re-samples `value` with exactly the
-// forward's arithmetic because both call `bilinear_corners`.
+// backward (ms_deform_attn_bwd.cu, K2): the level table, the bilinear corners
+// of one sample, and the tiles a block takes. The backward re-samples `value`
+// with exactly the forward's arithmetic because both call `bilinear_corners`.
+//
+// A block of either kernel owns one (b, m) and one tile of queries, tile t
+// holding the queries tile_q[tile_ptr[t] : tile_ptr[t + 1]]
+// (ops/deform_attn.py `tile_plan` builds the tables).
 
 #pragma once
 
@@ -10,8 +14,9 @@
 namespace msda {
 
 constexpr int kMaxLevels = 16;
-constexpr int kMaxDChunks = 4;  // D <= 128, in steps of one warp
+constexpr int kMaxDChunks = 4;  // D <= 128, in chunks of 32 channels
 constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Levels {
@@ -35,6 +40,18 @@ inline bool make_levels(const int* shapes, int L, int P, int D, int S,
     start += lv->h[l] * lv->w[l];
   }
   return start == S;
+}
+
+// The level table in shared memory, where a level chosen at run time is one
+// load. Every thread calls it (it syncs).
+__device__ __forceinline__ void share_levels(Levels* s_lv, const Levels& lv,
+                                             int L) {
+  if (threadIdx.x < L) {
+    s_lv->h[threadIdx.x] = lv.h[threadIdx.x];
+    s_lv->w[threadIdx.x] = lv.w[threadIdx.x];
+    s_lv->start[threadIdx.x] = lv.start[threadIdx.x];
+  }
+  __syncthreads();
 }
 
 // Corner c is (dy, dx) = (c >> 1, c & 1) from the top-left one. A corner

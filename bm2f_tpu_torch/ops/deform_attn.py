@@ -25,13 +25,18 @@ rows and computes in f32 on the f32 locations and attention weights, into an
 f32 output, as the JAX package's Pallas path does. Its gradient (K2 on a
 bf16 `value`) is not ported yet, so the Function refuses a bf16 `value` when
 any input requires grad.
+
+The kernels work in tiles of neighbouring queries of one head (`tile_plan`,
+built once per shape).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -41,6 +46,15 @@ _FWD_SOURCE = "ms_deform_attn_fwd.cu"
 _BWD_SOURCE = "ms_deform_attn_bwd.cu"
 _MAX_LEVELS = 16
 _MAX_D = 128
+
+# The kernels' tiles (ms_deform_attn_common.cuh): runs of RUN consecutive
+# queries, or for K2 when Q == S (the encoder: the queries are the levels'
+# pixels, in order) encoder cells, every query whose reference point falls in
+# one CELL x CELL cell of the finest level, on every level. On the H100 the
+# cells made K2 3 % faster than runs and K1 no faster at the serve shapes
+# (PERF.md).
+CELL = 8
+RUN = 64
 
 
 def level_start_index(spatial_shapes: Sequence[Tuple[int, int]]) -> Tuple[int, ...]:
@@ -148,6 +162,52 @@ def ms_deform_attn_bwd_plain(value, spatial_shapes, sampling_locations,
     return d_value, d_loc, d_attn
 
 
+class TilePlan(NamedTuple):
+    """Tile t holds the queries tile_q[tile_ptr[t]:tile_ptr[t + 1]]; int32
+    arrays, as the kernels take them."""
+
+    tile_ptr: np.ndarray  # (n_tiles + 1,)
+    tile_q: np.ndarray  # (Q,)
+
+
+def encoder_cells(spatial_shapes) -> np.ndarray:
+    """The cell of every pixel of every level, in order: the index, on the
+    CELL x CELL grid of the finest height and width, of the cell that holds
+    the pixel's centre (its encoder reference point)."""
+    Hf = max(h for h, _ in spatial_shapes)
+    Wf = max(w for _, w in spatial_shapes)
+    n_cx = -(-Wf // CELL)
+    cells = []
+    for H, W in spatial_shapes:
+        y, x = np.divmod(np.arange(H * W), W)
+        # floor(((y + 0.5) / H) * Hf / CELL), in integers
+        cells.append(((2 * y + 1) * Hf) // (2 * H * CELL) * n_cx
+                     + ((2 * x + 1) * Wf) // (2 * W * CELL))
+    return np.concatenate(cells)
+
+
+def tile_plan(spatial_shapes, Q: int, cells: bool) -> TilePlan:
+    """The tiles of one call: encoder cells when `cells` and Q == S, else
+    runs."""
+    S = sum(int(h) * int(w) for h, w in spatial_shapes)
+    if cells and Q == S:
+        cell_of = encoder_cells(spatial_shapes)
+        tile_q = np.argsort(cell_of, kind="stable")
+        tile_ptr = np.concatenate([[0], np.cumsum(np.unique(cell_of, return_counts=True)[1])])
+    else:
+        tile_q = np.arange(Q)
+        tile_ptr = np.append(np.arange(0, Q, RUN), Q)
+    return TilePlan(tile_ptr.astype(np.int32), tile_q.astype(np.int32))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_plan(spatial_shapes, Q: int, cells: bool, device):
+    """`tile_plan` with its tables on `device`, built once per shape:
+    (tile_ptr, tile_q, n_tiles)."""
+    plan = tile_plan(spatial_shapes, Q, cells)
+    return (*(torch.from_numpy(a).to(device) for a in plan), len(plan.tile_ptr) - 1)
+
+
 def _cuda_dims(value, spatial_shapes, sampling_locations, attention_weights,
                grad_out=None, value_dtypes=(torch.float32,)) -> Tuple[int, ...]:
     """(B, S, M, D, Q, L, P). Raises unless every input is a contiguous
@@ -182,6 +242,10 @@ def _cuda_dims(value, spatial_shapes, sampling_locations, attention_weights,
     return B, S, M, D, Q, L, P
 
 
+def _shapes_key(spatial_shapes) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(h), int(w)) for h, w in spatial_shapes)
+
+
 def _shapes_arg(spatial_shapes):
     L = len(spatial_shapes)
     return (ctypes.c_int * (2 * L))(*[int(v) for hw in spatial_shapes for v in hw])
@@ -209,9 +273,12 @@ def ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
     bf16 = value.dtype == torch.bfloat16
     fn = _kernel(_FWD_SOURCE, "ms_deform_attn_fwd_bf16" if bf16 else "ms_deform_attn_fwd",
                  n_tensors=4)
+    tile_ptr, tile_q, n_tiles = _device_plan(_shapes_key(spatial_shapes), Q, False,
+                                             value.device)
     rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
-            attention_weights.data_ptr(), out.data_ptr(), _shapes_arg(spatial_shapes),
-            B, S, M, D, Q, L, P, torch.cuda.current_stream(value.device).cuda_stream)
+            attention_weights.data_ptr(), out.data_ptr(), tile_ptr.data_ptr(),
+            tile_q.data_ptr(), _shapes_arg(spatial_shapes), B, S, M, D, Q, L, P, n_tiles,
+            torch.cuda.current_stream(value.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ms_deform_attn_fwd launch failed: CUDA error {rc}")
     if bf16:
@@ -238,10 +305,13 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations,
     if d_attn.numel() == 0:
         return d_value, d_loc, d_attn
     fn = _kernel(_BWD_SOURCE, "ms_deform_attn_bwd", n_tensors=7)
+    tile_ptr, tile_q, n_tiles = _device_plan(_shapes_key(spatial_shapes), Q, True,
+                                             value.device)
     rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
             attention_weights.data_ptr(), grad_out.data_ptr(), d_value.data_ptr(),
-            d_loc.data_ptr(), d_attn.data_ptr(), _shapes_arg(spatial_shapes),
-            B, S, M, D, Q, L, P, torch.cuda.current_stream(value.device).cuda_stream)
+            d_loc.data_ptr(), d_attn.data_ptr(), tile_ptr.data_ptr(), tile_q.data_ptr(),
+            _shapes_arg(spatial_shapes), B, S, M, D, Q, L, P, n_tiles,
+            torch.cuda.current_stream(value.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ms_deform_attn_bwd launch failed: CUDA error {rc}")
     ms_deform_attn_bwd_cuda.launches += 1
@@ -253,11 +323,12 @@ ms_deform_attn_bwd_cuda.launches = 0
 
 def _kernel(source: str, name: str, n_tensors: int):
     """The C entry point `name` of `source`: n_tensors device pointers, the
-    host (H, W) table, B, S, M, D, Q, L, P and the stream."""
+    two tile tables on the device, the host (H, W) table, B, S, M, D, Q, L,
+    P, n_tiles and the stream."""
     fn = getattr(cuda_build.load(source), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * n_tensors + [ctypes.POINTER(ctypes.c_int)] + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * (n_tensors + 2) + [ctypes.POINTER(ctypes.c_int)] + [
+        ctypes.c_int] * 8 + [ctypes.c_void_p]
     return fn
 
 

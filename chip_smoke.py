@@ -10,7 +10,8 @@ Phases, each printing its own line:
      source, all started together);
   3. each kernel against its plain PyTorch version on the card: edge cases
      and the main-path shapes;
-  4. kernel timing (CUDA events) beside the plain version and the bound;
+  4. kernel timing (CUDA events, the wrapper calls) beside the plain
+     version and the bound;
   5. the main path: `Predictor` on `coco_instance_r50` at full width with
      seeded random weights answers 3 requests; every kernel's launch count
      is set to 0 just before and read just after;
@@ -18,8 +19,8 @@ Phases, each printing its own line:
   7. K2 (the deformable-attention backward) against its plain version on
      the card: edge cases and the train-path shapes, each run twice (d_loc
      and d_attn bitwise equal, d_value within the atomics' tolerance);
-  8. K2 and K1 timing at the train-path shapes beside the plain versions
-     and the bound;
+  8. K2 and K1 timing (the wrapper calls) at the train-path shapes beside
+     the plain versions and the bound;
   9. gradient parity on the card: `Trainer` on `coco_instance_r50` at full
      width, at its seeded init, one B=1 1024x1024 step's loss and
      gradients through the kernels against the plain path, on the same
@@ -39,7 +40,8 @@ Phases, each printing its own line:
      version; each timed beside the plain version, the bound and
      `F.embedding_bag`;
  13. K1 on a bf16 `value` against its plain version (edge cases and the
-     800x800 shapes at B=1 and 4) and timed beside it and its bound;
+     800x800 shapes at B=1 and 4) and timed (the wrapper calls) beside it
+     and its bound;
  14. bf16 serving: `Predictor` with model.dtype=bfloat16 and
      pixel_decoder_f32=False (the JAX bench's configuration) answers the 3
      requests with every count set to 0 before and read after (K1-bf16 6
@@ -140,23 +142,20 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def deform_inputs(B, shapes, Q, gen, dev, loc_range=None):
-    """value, locations, attention weights from a seeded generator. With
-    `loc_range` the locations are uniform in it; else they sit around the
-    encoder's reference points, a few pixels off, as in the model."""
-    from bm2f_tpu_torch.models.pixel_decoder import encoder_reference_points
+    """value, locations, attention weights from a seeded generator: uniform
+    in `loc_range`, or around the encoder's reference points (the
+    deformable-attention bench's inputs)."""
+    from bm2f_tpu_torch.tools.deform_attn_bench import deform_inputs as inputs
 
-    S, L = sum(h * w for h, w in shapes), len(shapes)
-    value = torch.randn(B, S, M, D, generator=gen).to(dev)
-    if loc_range is not None:
-        lo, hi = loc_range
-        loc = torch.rand(B, Q, M, L, P, 2, generator=gen) * (hi - lo) + lo
-    else:
-        ref = encoder_reference_points(shapes)[:Q]  # (Q, L, 2)
-        norm = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)
-        off = torch.randn(B, Q, M, L, P, 2, generator=gen) * 2.0
-        loc = ref[None, :, None, :, None, :] + off / norm[None, None, None, :, None, :]
-    attn = torch.softmax(torch.randn(B, Q, M, L * P, generator=gen), -1)
-    return value, loc.contiguous().to(dev), attn.view(B, Q, M, L, P).to(dev)
+    return inputs(B, shapes, Q, gen, dev, loc_range)
+
+
+def n_tiles(shapes, Q, cells) -> int:
+    """The tiles of queries K1 (cells=False) or K2 (cells=True) takes at
+    these shapes (a block each per (b, m))."""
+    from bm2f_tpu_torch.ops.deform_attn import tile_plan
+
+    return len(tile_plan(shapes, Q, cells).tile_ptr) - 1
 
 
 def valid_corners(shapes, loc) -> int:
@@ -277,14 +276,16 @@ def time_k2(inputs):
     gs_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 3)
     del out, leaves
     bound, by, n_bytes, flops = deform_bwd_bound_ms(B, TRAIN_SHAPES, Q, L, loc)
-    log("time", kernel="ms_deform_attn_bwd", B=B, ms=f"{k_ms:.4f}",
+    log("time", kernel="ms_deform_attn_bwd", B=B, tiles=n_tiles(TRAIN_SHAPES, Q, True),
+        ms=f"{k_ms:.4f}",
         plain_ms=f"{p_ms:.4f}", grid_sample_composite_bwd_ms=f"{gs_ms:.4f}",
         bound_ms=f"{bound:.4f}", bound_by=by, bytes=n_bytes, flops=flops,
         zeroing_bytes=4 * v.numel(), share_of_bound=f"{bound / k_ms:.3f}")
     f_ms = cuda_ms(lambda: ms_deform_attn_cuda(v, TRAIN_SHAPES, loc, attn), 20)
     fp_ms = cuda_ms(lambda: ms_deform_attn_plain(v, TRAIN_SHAPES, loc, attn), 3)
     f_bound, f_by, f_bytes, f_flops = deform_bound_ms(B, TRAIN_SHAPES, Q, L, loc)
-    log("time", kernel="ms_deform_attn_fwd", B=B, shapes="train", ms=f"{f_ms:.4f}",
+    log("time", kernel="ms_deform_attn_fwd", B=B, shapes="train",
+        tiles=n_tiles(TRAIN_SHAPES, Q, False), ms=f"{f_ms:.4f}",
         plain_ms=f"{fp_ms:.4f}", bound_ms=f"{f_bound:.4f}", bound_by=f_by,
         bytes=f_bytes, flops=f_flops, share_of_bound=f"{f_bound / f_ms:.3f}")
     return k_ms, p_ms, bound, by
@@ -654,7 +655,8 @@ def check_k1_bf16(dev, gen):
             p_ms = cuda_ms(lambda: ms_deform_attn_plain(v, shapes, loc, attn), 10)
             bound, by, n_bytes, flops = deform_bound_ms(B, shapes, Q, 3, loc, value_bytes=2)
             timing[B] = (k_ms, p_ms, bound, by)
-            log("time", kernel="ms_deform_attn_fwd_bf16", B=B, ms=f"{k_ms:.4f}",
+            log("time", kernel="ms_deform_attn_fwd_bf16", B=B, tiles=n_tiles(shapes, Q, False),
+                ms=f"{k_ms:.4f}",
                 plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
                 bytes=n_bytes, flops=flops, share_of_bound=f"{bound / k_ms:.3f}")
     return errs[1], timing[1]
@@ -809,7 +811,8 @@ def main() -> int:
         g_ms = cuda_ms(lambda: grid_sample_composite(v, MAIN_SHAPES, loc, attn), 10)
         bound, by, n_bytes, flops = deform_bound_ms(B, MAIN_SHAPES, S_main, 3, loc)
         timing[B] = (k_ms, p_ms, bound, by)
-        log("time", kernel="ms_deform_attn_fwd", B=B, ms=f"{k_ms:.4f}",
+        log("time", kernel="ms_deform_attn_fwd", B=B, tiles=n_tiles(MAIN_SHAPES, S_main, False),
+            ms=f"{k_ms:.4f}",
             plain_ms=f"{p_ms:.4f}", grid_sample_composite_ms=f"{g_ms:.4f}",
             bound_ms=f"{bound:.4f}", bound_by=by, bytes=n_bytes, flops=flops,
             share_of_bound=f"{bound / k_ms:.3f}")

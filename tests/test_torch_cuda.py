@@ -149,6 +149,84 @@ def test_ms_deform_attn_bwd_kernel_repeats():
     torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-6 * a[0].abs().max().item())
 
 
+# encoder-like calls (Q == S: the queries are the levels' pixels): (B, M, D,
+# P, spatial shapes). The model's L=3, P=4, D=32 (the unrolled instantiation)
+# at two level sets, and the generic one (L=2, P=3, D=64)
+ENCODER_CASES = [
+    (1, 2, 32, 4, ((13, 13), (25, 25), (50, 50))),
+    (2, 2, 32, 4, ((8, 8), (16, 16), (32, 32))),
+    (2, 2, 64, 3, ((5, 7), (10, 14))),
+]
+
+
+def _encoder_inputs(case, dev, far: bool, seed=0):
+    """Locations at the encoder's reference points +- a few pixels of each
+    level; with `far`, a quarter of the samples pushed 10-30 pixels away
+    (across tiles, or outside their level)."""
+    from bm2f_tpu_torch.models.pixel_decoder import encoder_reference_points
+
+    B, M, D, P, shapes = case
+    rng = np.random.RandomState(seed)
+    S, L = sum(h * w for h, w in shapes), len(shapes)
+    off = rng.randn(B, S, M, L, P, 2) * 2.0
+    if far:
+        push = rng.rand(B, S, M, L, P, 1) < 0.25
+        off += push * rng.choice([-1, 1], off.shape) * rng.uniform(10, 30, off.shape)
+    ref = encoder_reference_points(shapes).numpy()[None, :, None, :, None, :]
+    norm = np.array([[w, h] for h, w in shapes])[None, None, None, :, None, :]
+    loc = (ref + off / norm).astype(np.float32)
+    value = rng.randn(B, S, M, D).astype(np.float32)
+    attn = rng.rand(B, S, M, L * P).astype(np.float32)
+    attn = (attn / attn.sum(-1, keepdims=True)).reshape(B, S, M, L, P)
+    g = rng.randn(B, S, M * D).astype(np.float32)
+    return shapes, *(torch.from_numpy(a).to(dev) for a in (value, loc, attn, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("far", [False, True], ids=["near", "far"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ENCODER_CASES)
+def test_ms_deform_attn_kernel_encoder_tiles_match_plain(case, dtype, far):
+    """K1 on encoder-like inputs (Q == S), the samples near their reference
+    points or, with
+    `far`, a quarter of them far off or outside their level. One launch,
+    rtol/atol 1e-5 against the plain version."""
+    dev = require_cuda()
+    shapes, value, loc, attn, _ = _encoder_inputs(case, dev, far)
+    value = value.to(dtype)
+    before = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)
+    got = ms_deform_attn_cuda(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16) == (
+        before[0] + (not bf16), before[1] + bf16)
+    want = ms_deform_attn_plain(value, shapes, loc, attn)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("far", [False, True], ids=["near", "far"])
+@pytest.mark.parametrize("case", ENCODER_CASES)
+def test_ms_deform_attn_bwd_kernel_encoder_tiles_match_plain(case, far):
+    """K2 on the encoder-like inputs of the K1 test (Q == S: blocks take
+    encoder cells of neighbouring queries). One launch per call;
+    GRAD_TOL against the closed-form plain backward; d_loc and d_attn
+    bitwise equal across two runs, d_value to the atomics' rounding (as
+    test_ms_deform_attn_bwd_kernel_repeats)."""
+    dev = require_cuda()
+    shapes, value, loc, attn, g = _encoder_inputs(case, dev, far, seed=1)
+    before = ms_deform_attn_bwd_cuda.launches
+    a = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+    b = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_bwd_cuda.launches == before + 2
+    want = ms_deform_attn_bwd_plain(value, shapes, loc, attn, g)
+    for name, x, w in zip(GRAD_TOL, a, want):
+        torch.testing.assert_close(x, w, msg=name, **GRAD_TOL[name])
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-6 * a[0].abs().max().item())
+
+
 @pytest.mark.cuda
 def test_ms_deform_attn_kernel_rejects_what_it_does_not_take():
     dev = require_cuda()
