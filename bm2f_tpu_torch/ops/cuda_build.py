@@ -52,34 +52,57 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{tag}.so"
 
 
+def _compile(jobs) -> Dict[str, Tuple[Path, float, str]]:
+    """jobs: {key: (source path, library path)}. Compiles every library not
+    yet built, one `nvcc` process each, all started together. Returns {key:
+    (library, seconds, compiler log)}; raises if any compile fails."""
+    procs, result = {}, {}
+    for key, (src, lib) in jobs.items():
+        if lib.exists():
+            result[key] = (lib, 0.0, "cached")
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[key] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), lib, tmp, time.perf_counter())
+    failed = []
+    for key, (proc, lib, tmp, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{key} (rc {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)
+        result[key] = (lib, seconds, log)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return result
+
+
 def build(sources: Iterable[str]) -> Dict[str, Tuple[Path, float, str]]:
     """Compile every source not yet built, one `nvcc` process each, all
     started together. Returns {source: (library, seconds, compiler log)};
     raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs, result = {}, {}
-    for source in sources:
-        lib = library_path(source)
-        if lib.exists():
-            result[source] = (lib, 0.0, "cached")
-            continue
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
-        procs[source] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ), lib, tmp, time.perf_counter())
-    failed = []
-    for source, (proc, lib, tmp, t0) in procs.items():
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{source} (rc {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, lib)
-        result[source] = (lib, seconds, log)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return result
+    return _compile({s: (CSRC_DIR / s, library_path(s)) for s in sources})
+
+
+def build_variants(specs) -> Dict[object, ctypes.CDLL]:
+    """specs: {label: source path}, sources outside `csrc/` (for instance a
+    parent commit's, unpacked elsewhere) built into `_build/variants/`, all
+    in parallel. Returns {label: loaded library}."""
+    jobs = {}
+    for label, src in specs.items():
+        src = Path(src)
+        h = hashlib.sha256(src.read_bytes())
+        for header in sorted(src.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        lib = BUILD_DIR / "variants" / f"{src.stem}-{h.hexdigest()[:16]}.so"
+        jobs[label] = (src, lib)
+    return {label: ctypes.CDLL(str(lib)) for label, (lib, _, _) in _compile(jobs).items()}
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -87,16 +87,12 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def parent_kernels(csrc: Path):
     """The first design's entry points, built from `csrc` with the port's
     nvcc flags: {name: ctypes function}."""
-    out_dir = cuda_build.BUILD_DIR / "parent"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    entries = {"ms_deform_attn_fwd.cu": ("ms_deform_attn_fwd", "ms_deform_attn_fwd_bf16"),
+               "ms_deform_attn_bwd.cu": ("ms_deform_attn_bwd",)}
+    libs = cuda_build.build_variants({src: csrc / src for src in entries})
     fns = {}
-    for src, names in (("ms_deform_attn_fwd.cu", ("ms_deform_attn_fwd",
-                                                  "ms_deform_attn_fwd_bf16")),
-                       ("ms_deform_attn_bwd.cu", ("ms_deform_attn_bwd",))):
-        lib = out_dir / src.replace(".cu", ".so")
-        subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-                        str(csrc / src)], check=True, capture_output=True)
-        dll = ctypes.CDLL(str(lib))
+    for src, names in entries.items():
+        dll = libs[src]
         for name in names:
             fn = getattr(dll, name)
             fn.restype = ctypes.c_int

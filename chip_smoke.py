@@ -34,11 +34,12 @@ Phases, each printing its own line:
  11. phase 9 again at the trained state;
  12. the gather probe (`python -m bm2f_tpu_torch.tools.roofline_microbench`,
      driven through its `bench_level`): K3 and K4 in f32 and bf16 at the
-     production shapes (BM 32, QP 13312, K 4), S 625 and 2500 for both, S
-     10000 for K3 too, random and coherent addresses, every count set to 0
-     just before and read just after. Each output bitwise equal to the plain
-     version; each timed beside the plain version, the bound and
-     `F.embedding_bag`;
+     production shapes (BM 32, QP 13312, K 4), S 625, 2500 and 10000,
+     random and coherent addresses, every count set to 0 just before and
+     read just after. Each output bitwise equal to the plain version; each
+     timed beside the plain version, the bound and `F.embedding_bag`, K4
+     beside both of its tensor-core ceilings (dense, and the products it
+     issues);
  13. K1 on a bf16 `value` against its plain version (edge cases and the
      800x800 shapes at B=1 and 4) and timed (the wrapper calls) beside it
      and its bound;
@@ -110,8 +111,8 @@ BF16_VS_PLAIN_REL = BF16_VS_F32_REL = 0.05
 # bf16 serving: the bench's configuration, and with the pixel decoder in f32
 BF16 = {"model.dtype": "bfloat16", "model.pixel_decoder_f32": False}
 BF16_PD_F32 = {"model.dtype": "bfloat16", "model.pixel_decoder_f32": True}
-# the probe: level sizes of every impl, and of K3 alone; CUDA-event launches
-PROBE_LEVELS, PROBE_K3_LEVELS, PROBE_ITERS = (625, 2500), (10000,), 20
+# the probe: level sizes of every impl; CUDA-event launches
+PROBE_LEVELS, PROBE_ITERS = (625, 2500, 10000), 20
 # the probe's row of each kernel in the kernels line
 PROBE_ROW = dict(S=2500, addresses="random")
 
@@ -603,7 +604,6 @@ def probe_path():
 
     t0 = time.perf_counter()
     runs = [(S, c, probe.IMPLS) for S in PROBE_LEVELS for c in (False, True)]
-    runs += [(S, c, ("scalar", "scalar_bf16")) for S in PROBE_K3_LEVELS for c in (False, True)]
     reset_counts()
     lines = []
     for S, coherent, impls in runs:
@@ -956,8 +956,10 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["embedding_bag_ms"],
-            # K4 only: its one-hot products on the tensor cores, apart
-            **({"onehot_tc_bound_ms": row["onehot_tc_bound_ms"]}
+            # K4 only: its dense one-hot products on the tensor cores, and
+            # the products it issues (fragments that hold a one), apart
+            **({"onehot_tc_bound_ms": row["onehot_tc_bound_ms"],
+                "onehot_hit_tc_bound_ms": row["onehot_hit_tc_bound_ms"]}
                if row["onehot_tc_bound_ms"] is not None else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)

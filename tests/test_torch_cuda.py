@@ -96,6 +96,118 @@ def test_gather_probe_kernels_bitwise_equal_plain(S, coherent):
     assert row_gather_sum_cuda.launches_bf16 > 0 and row_gather_sum_onehot_cuda.launches_bf16 > 0
 
 
+# (BM, S, K, QP, pattern) of the gather kernels' edge cases: S not a multiple
+# of a chunk or an MMA k-step, QP not a multiple of K3's 32-query run, K4's
+# 64-query pass or its qt, K = 1..4, BM = 1, and the index patterns of
+# `_gather_inputs`
+GATHER_CASES = [
+    (2, 1, 4, 100, "random"),
+    (2, 40, 4, 100, "random"),
+    (2, 625, 4, 100, "random"),
+    (2, 2500, 4, 100, "random"),
+    (2, 10000, 4, 100, "random"),
+    (1, 625, 4, 1, "random"),
+    (1, 625, 4, 13125, "random"),
+    (3, 625, 1, 100, "random"),
+    (3, 625, 2, 100, "random"),
+    (3, 2500, 3, 100, "random"),
+    (2, 625, 4, 300, "out_of_range"),
+    (2, 2500, 4, 300, "one_row"),
+    (2, 2500, 4, 300, "one_chunk"),
+    (2, 2500, 4, 300, "empty_pass"),
+]
+
+
+def _gather_inputs(BM, S, K, QP, pattern, seed=0):
+    """A bf16-representable table and uniform indices, then: `out_of_range`
+    puts -1, S and 2^30 among them; `one_row` sends every index to one row;
+    `one_chunk` keeps them in one 32-row block (inside one chunk of K4 in
+    f32 and in bf16); `empty_pass` leaves queries 64-127 (a whole K4 pass)
+    with no index in range."""
+    rng = np.random.RandomState(seed)
+    table = torch.from_numpy(rng.randn(BM, S, 128).astype(np.float32))
+    table = table.to(torch.bfloat16).float().numpy()
+    idx = rng.randint(0, S, (BM, K, QP)).astype(np.int32)
+    if pattern == "out_of_range":
+        idx.reshape(-1)[::7] = -1
+        idx.reshape(-1)[3::7] = S
+        idx.reshape(-1)[5::7] = 2**30
+    elif pattern == "one_row":
+        idx[...] = S // 2
+    elif pattern == "one_chunk":
+        lo = S // 2 // 64 * 64
+        idx = (lo + rng.randint(0, min(32, S - lo), idx.shape)).astype(np.int32)
+    elif pattern == "empty_pass":
+        idx[:, :, 64:128] = -1
+    return table, idx
+
+
+def _twice_bitwise(wrapper, call, bf16, want):
+    """Two calls of one kernel: each equal to the plain version (torch.equal,
+    as the probe checks), equal to each other, one launch counted each."""
+    counter = "launches_bf16" if bf16 else "launches"
+    before = getattr(wrapper, counter)
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    assert getattr(wrapper, counter) == before + 2
+    assert torch.equal(a, want), (a - want).abs().max().item()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GATHER_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_gather_kernels_edge_cases_bitwise_equal_plain(case, dtype):
+    """K3, and K4 at qt 64 and 192 (one and three passes a block), on every
+    edge case, in f32 and bf16: bitwise equal to the plain version and
+    across two runs, one launch counted per call."""
+    dev = require_cuda()
+    table, idx = _gather_inputs(*case)
+    t = torch.from_numpy(table).to(dev, dtype)
+    i = torch.from_numpy(idx).to(dev)
+    want = row_gather_sum_plain(t, i)
+    bf16 = dtype == torch.bfloat16
+    _twice_bitwise(row_gather_sum_cuda, lambda: row_gather_sum_cuda(t, i), bf16, want)
+    for qt in (64, 192):
+        _twice_bitwise(row_gather_sum_onehot_cuda,
+                       lambda: row_gather_sum_onehot_cuda(t, i, qt), bf16, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pattern", ["random", "out_of_range"])
+def test_gather_rows_any_k(pattern, dtype):
+    """K3 at K = 7 (its indices walked in chunks of 4) and K = 0 (zero
+    rows), bitwise equal to the plain version."""
+    dev = require_cuda()
+    for K in (7, 0):
+        table, idx = _gather_inputs(2, 625, K, 100, pattern)
+        t = torch.from_numpy(table).to(dev, dtype)
+        i = torch.from_numpy(idx).to(dev)
+        want = row_gather_sum_plain(t, i)
+        _twice_bitwise(row_gather_sum_cuda, lambda: row_gather_sum_cuda(t, i),
+                       dtype == torch.bfloat16, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coherent", [False, True], ids=["random", "coherent"])
+@pytest.mark.parametrize("S", [625, 2500, 10000])
+def test_gather_probe_kernels_production_shapes(S, coherent):
+    """The probe's own data at its production shapes (BM 32, QP 13312, K 4,
+    qt 512): K3 and K4 in f32 and bf16, bitwise equal to the plain version
+    and across two runs."""
+    dev = require_cuda()
+    table, idx = make_inputs(S, coherent)
+    t, i = torch.from_numpy(table).to(dev), torch.from_numpy(idx).to(dev)
+    want = row_gather_sum_plain(t, i)
+    for dtype in (torch.float32, torch.bfloat16):
+        tt = t.to(dtype)
+        bf16 = dtype == torch.bfloat16
+        _twice_bitwise(row_gather_sum_cuda, lambda: row_gather_sum_cuda(tt, i), bf16, want)
+        _twice_bitwise(row_gather_sum_onehot_cuda,
+                       lambda: row_gather_sum_onehot_cuda(tt, i, 512), bf16, want)
+
+
 def _deform_inputs(case, dev, seed=0):
     B, M, D, P, Q, shapes = case
     rng = np.random.RandomState(seed)

@@ -119,10 +119,21 @@ def test_probe_cli_on_cpu(capsys, monkeypatch):
         assert ln["bound_by"] == "bytes"
         tc = ln["onehot_tc_bound_ms"]
         if ln["impl"].startswith("onehot"):
-            peak = 989e12 if ln["impl"].endswith("bf16") else 495e12
+            bf16 = ln["impl"].endswith("bf16")
+            peak = 989e12 if bf16 else 495e12
             assert tc == pytest.approx(onehot_ops(2, S_SMOKE, 4, 128) / peak * 1e3)
+            # the products K4 issues: its 16-query fragments that hold a one
+            # (every k-step is 8 or 16 rows, so S=40 pads to 48 rows in bf16)
+            _, idx = probe.make_inputs(S_SMOKE, ln["addresses"] == "coherent", 2, 128, 4)
+            hit = gather_probe.onehot_hit_ops(torch.from_numpy(idx), S_SMOKE, bf16)
+            assert ln["onehot_hit_tc_bound_ms"] == pytest.approx(hit / peak * 1e3)
+            assert 0 < hit <= 2 * 16 * (16 if bf16 else 8) * 128 * gather_probe.onehot_dense_steps(
+                2, S_SMOKE, 4, 128, bf16)
+            # one chunk covers S=40: every 64-query pass stages it
+            assert ln["staged_mb"] == pytest.approx(2 * 2 * S_SMOKE * 128 * (2 if bf16 else 4) / 1e6)
         else:
             assert tc is None
+            assert ln["onehot_hit_tc_bound_ms"] is None and ln["staged_mb"] is None
     monkeypatch.setenv("ROOFLINE_IMPLS", "onehot,scalar_bf16")
     assert probe.main(["--device", "cpu", "--smoke"]) == 0
     names = [json.loads(ln)["impl"] for ln in capsys.readouterr().out.splitlines()]
