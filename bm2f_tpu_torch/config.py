@@ -263,10 +263,13 @@ class InputConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     ims_per_batch: int = 16
-    # Hungarian assignment implementation: "auto" picks the exact host LSA
-    # (native C++ JV via per-shard callbacks) on backends that support host
-    # callbacks, and the EXACT on-device batched Jonker-Volgenant solver on
-    # ones that don't.
+    # Hungarian assignment implementation (matching/hungarian.py
+    # `make_assign_fn`): "lap" is the exact host solve (the native C++ JV
+    # solver, one copy of all costs a step), "jv" the EXACT batched
+    # Jonker-Volgenant solver on the costs' device. "auto" is "lap" on every
+    # device: the JAX package picks "jv" on accelerators only because its
+    # TPU runtime had no host callbacks, and PyTorch always has them; both
+    # solvers are exact.
     # "auction" is EXPERIMENTAL: the epsilon-scaling auction shows measurable
     # suboptimality on production matcher costs (the ~Q-G identical padding
     # columns trigger bidding wars; see hungarian.auction_assign docstring).

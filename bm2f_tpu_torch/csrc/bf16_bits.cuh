@@ -1,5 +1,6 @@
 // A bf16 value as its 16 bits, and its upcast to f32, shared by the kernels
-// that read bf16 rows (ms_deform_attn_fwd.cu, K1; gather_rows.cu, K3). A bf16
+// that read bf16 rows (ms_deform_attn_fwd.cu, K1; ms_deform_attn_bwd.cu, K2;
+// gather_rows.cu, K3). A bf16
 // is the top half of an f32, so the upcast is exact: a shift, no rounding.
 
 #pragma once

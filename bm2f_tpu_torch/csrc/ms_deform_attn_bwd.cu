@@ -20,8 +20,8 @@
 // one lane), in blocks of one head's neighbouring queries (encoder cells:
 // every query whose reference point falls in one 8x8 cell of the finest
 // level, on every level, when Q == S; runs of queries otherwise), and
-// adds a corner's share of d_value with one 16-byte vector atomic a lane
-// (sm_90's `atomicAdd` on float4): a quarter of the first design's atomic
+// adds a corner's share of d_value with 16-byte vector atomics (sm_90's
+// `atomicAdd` on float4): a quarter of the first design's atomic
 // instructions (one 4-byte `atomicAdd` a lane). The dot products with the
 // output gradient reduce inside each lane group with __shfl_xor_sync, and
 // the lane that worked a sample out writes its d_loc and d_attn, once, with
@@ -31,9 +31,20 @@
 // bulk reduce-add) was measured and lost: those atomics are slower than L2's
 // vector ones. A deterministic d_value is ROADMAP queue 2.
 //
+// A bf16 `value` (bf16 training) takes the same kernel instantiated on
+// 16-bit rows, as K1 does: 4 lanes cover a 64-byte row of 32 channels, each
+// lane 8 channels in one 16-byte load, all arithmetic in f32 on the f32
+// locations, attention weights and output gradient. d_value is summed in
+// an f32 buffer with the same float4 atomics; the caller rounds it to bf16
+// once (ops/deform_attn.py). The JAX package rounds its f32 patch gradient
+// to bf16 and sums the four corner blocks in bf16 (the autodiff of
+// deform_attn_pallas.py:267-272), one rounding per corner more.
+//
 // What it reached on an H100 (700 W power limit; chip_smoke.py, PERF.md):
 // 0.70 ms at the train shapes, 0.10 of its byte bound; the first design
-// took 1.37 ms.
+// took 1.37 ms. On a bf16 `value` 1.35 ms, 0.04 of its byte bound: twice
+// the f32 time, with no spill in the model's instantiation (ROADMAP queue
+// 2 lists what is suspected).
 
 #include "ms_deform_attn_common.cuh"
 
@@ -44,14 +55,11 @@ using msda::kMaxDChunks;
 using msda::kThreads;
 using msda::kWarpsPerBlock;
 
-constexpr int kLanes = 8;              // lanes that cover 32 f32 channels
-constexpr int kGroups = 32 / kLanes;   // lane groups a warp
-
 // kL, kP, kNC: L, P and D / 32 fixed at compile time, or 0 for any; at most
 // 128 registers a thread, so that two blocks share an SM
-template <int kL, int kP, int kNC>
+template <typename T, int kL, int kP, int kNC>
 __global__ void __launch_bounds__(kThreads, 2)
-ms_deform_attn_bwd_kernel(const float* __restrict__ value,
+ms_deform_attn_bwd_kernel(const T* __restrict__ value,
                           const float* __restrict__ loc,
                           const float* __restrict__ attn,
                           const float* __restrict__ grad_out,
@@ -62,6 +70,9 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,
                           const int* __restrict__ tile_q, msda::Levels lv,
                           int S, int M, int D, int Q, int L_, int P_,
                           int n_tiles) {
+  constexpr int E = Row16<T>::kElems;   // channels a lane loads at once
+  constexpr int kLanes = 32 / E;        // lanes that cover 32 channels
+  constexpr int kGroups = 32 / kLanes;  // lane groups a warp
   const int L = kL ? kL : L_, P = kP ? kP : P_, K = L * P;
   const int nc = kNC ? kNC : D >> 5;
   // samples a lane group loads before it computes: all of them when L and P
@@ -77,7 +88,7 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,
   const int m = (int)(bm % M);
   const long long pix_stride = (long long)M * D;  // one pixel of value
   const long long bm_offset = b * S * pix_stride + (long long)m * D;
-  const float* value_bm = value + bm_offset;
+  const T* value_bm = value + bm_offset;
   float* d_value_bm = d_value + bm_offset;
   const int lane = threadIdx.x & 31;
   const int grp = lane / kLanes, sub = lane % kLanes;
@@ -88,12 +99,19 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,
     // (b, q, m) addresses loc / d_loc (K float2), attn / d_attn (K) and
     // grad_out (D channels)
     const long long row = (b * Q + __ldg(tile_q + i)) * M + m;
-    float4 g[kMaxDChunks];
+    float g[kMaxDChunks][E];
 #pragma unroll
     for (int t = 0; t < kMaxDChunks; ++t)
-      g[t] = t < nc ? __ldg(reinterpret_cast<const float4*>(grad_out + row * D +
-                                                            32 * t + 4 * sub))
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int e = 0; e < E; e += 4) {
+        const float4 x = t < nc ? __ldg(reinterpret_cast<const float4*>(
+                                      grad_out + row * D + 32 * t + E * sub + e))
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+        g[t][e] = x.x;
+        g[t][e + 1] = x.y;
+        g[t][e + 2] = x.z;
+        g[t][e + 3] = x.w;
+      }
     for (int it0 = 0; it0 < n_it; it0 += kLanes) {
       // lane `sub` of group `grp` works out sample (it0 + sub) * kGroups +
       // grp once: its corners' rows (-1: outside the level), K1's weights
@@ -118,12 +136,12 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,
         }
       }
       // ... then the group's lanes take those samples together, kBatch at a
-      // time: first every row, all loads in flight ...
+      // time: first every row, all loads in flight (16 raw bytes each) ...
       const int nj = min(kLanes, n_it - it0);
       for (int j0 = 0; j0 < nj; j0 += kBatch) {
         int pj[kBatch][4];
         float wj[kBatch][4];
-        float4 v[kBatch][4][kMaxDChunks];
+        uint4 v[kBatch][4][kMaxDChunks];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           const int src_lane = grp * kLanes + min(j0 + u, nj - 1);
@@ -131,12 +149,12 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,
           for (int c = 0; c < 4; ++c) {
             pj[u][c] = j0 + u < nj ? __shfl_sync(kFull, pix[c], src_lane) : -1;
             wj[u][c] = __shfl_sync(kFull, wa[c], src_lane);
-            const float* src = value_bm + pj[u][c] * pix_stride + 4 * sub;
+            const T* src = value_bm + pj[u][c] * pix_stride + E * sub;
 #pragma unroll
             for (int t = 0; t < kMaxDChunks; ++t)
               if (t < nc)
-                v[u][c][t] = pj[u][c] < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                          : __ldg(reinterpret_cast<const float4*>(src + 32 * t));
+                v[u][c][t] = pj[u][c] < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                                          : Row16<T>::load_raw(src + 32 * t);
           }
         }
         // ... then the d_value adds and the dot products with grad_out
@@ -151,13 +169,20 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,
 #pragma unroll
             for (int t = 0; t < kMaxDChunks; ++t) {
               if (t >= nc) continue;
-              dot[c] += v[u][c][t].x * g[t].x + v[u][c][t].y * g[t].y +
-                        v[u][c][t].z * g[t].z + v[u][c][t].w * g[t].w;
+              float x[E];
+              Row16<T>::unpack(v[u][c][t], x);
+              float s = x[0] * g[t][0];
+#pragma unroll
+              for (int e = 1; e < E; ++e) s += x[e] * g[t][e];
+              dot[c] += s;
               if (pj[u][c] < 0) continue;  // outside the level: no gradient
               const float w = wj[u][c];
-              atomicAdd(reinterpret_cast<float4*>(d_value_bm + pj[u][c] * pix_stride +
-                                                  32 * t + 4 * sub),
-                        make_float4(w * g[t].x, w * g[t].y, w * g[t].z, w * g[t].w));
+              float* dst = d_value_bm + pj[u][c] * pix_stride + 32 * t + E * sub;
+#pragma unroll
+              for (int e = 0; e < E; e += 4)
+                atomicAdd(reinterpret_cast<float4*>(dst + e),
+                          make_float4(w * g[t][e], w * g[t][e + 1], w * g[t][e + 2],
+                                      w * g[t][e + 3]));
             }
           }
           // the group's dot products over all channels, into every lane
@@ -190,43 +215,66 @@ ms_deform_attn_bwd_kernel(const float* __restrict__ value,
   }
 }
 
-template <int kL, int kP, int kNC>
-int launch_one(const float* value, const float* loc, const float* attn,
+template <typename T, int kL, int kP, int kNC>
+int launch_one(const T* value, const float* loc, const float* attn,
                const float* grad_out, float* d_value, float* d_loc,
                float* d_attn, const int* tile_ptr, const int* tile_q,
                const msda::Levels& lv, int B, int S, int M, int D, int Q, int L,
                int P, int n_tiles, cudaStream_t stream) {
   const long long blocks = (long long)B * M * n_tiles;
-  ms_deform_attn_bwd_kernel<kL, kP, kNC><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  ms_deform_attn_bwd_kernel<T, kL, kP, kNC><<<(unsigned)blocks, kThreads, 0, stream>>>(
       value, loc, attn, grad_out, d_value, d_loc, d_attn, tile_ptr, tile_q, lv, S,
       M, D, Q, L, P, n_tiles);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// value (B, S, M, D), loc (B, Q, M, L, P, 2), attn (B, Q, M, L, P),
-// grad_out (B, Q, M*D): contiguous f32 on the device. d_value has value's
-// shape and must hold zeros; d_loc and d_attn have loc's and
-// attn's shapes and are overwritten. tile_ptr and tile_q as for
-// ms_deform_attn_fwd. shapes: host array of L (H, W) pairs. Launches on
-// `stream` and returns cudaGetLastError().
-extern "C" int ms_deform_attn_bwd(const float* value, const float* loc,
-                                  const float* attn, const float* grad_out,
-                                  float* d_value, float* d_loc, float* d_attn,
-                                  const int* tile_ptr, const int* tile_q,
-                                  const int* shapes, int B, int S, int M, int D,
-                                  int Q, int L, int P, int n_tiles,
-                                  void* stream) {
+template <typename T>
+int launch(const T* value, const float* loc, const float* attn,
+           const float* grad_out, float* d_value, float* d_loc, float* d_attn,
+           const int* tile_ptr, const int* tile_q, const int* shapes, int B,
+           int S, int M, int D, int Q, int L, int P, int n_tiles, void* stream) {
   msda::Levels lv;
   if (!msda::make_levels(shapes, L, P, D, S, &lv) || n_tiles < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * Q * M == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (L == 3 && P == 4 && D == 32)  // the model
-    return launch_one<3, 4, 1>(value, loc, attn, grad_out, d_value, d_loc,
-                               d_attn, tile_ptr, tile_q, lv, B, S, M, D, Q, L, P,
-                               n_tiles, s);
-  return launch_one<0, 0, 0>(value, loc, attn, grad_out, d_value, d_loc, d_attn,
-                             tile_ptr, tile_q, lv, B, S, M, D, Q, L, P, n_tiles, s);
+    return launch_one<T, 3, 4, 1>(value, loc, attn, grad_out, d_value, d_loc,
+                                  d_attn, tile_ptr, tile_q, lv, B, S, M, D, Q, L,
+                                  P, n_tiles, s);
+  return launch_one<T, 0, 0, 0>(value, loc, attn, grad_out, d_value, d_loc, d_attn,
+                                tile_ptr, tile_q, lv, B, S, M, D, Q, L, P, n_tiles, s);
+}
+
+}  // namespace
+
+// value (B, S, M, D), loc (B, Q, M, L, P, 2), attn (B, Q, M, L, P),
+// grad_out (B, Q, M*D): contiguous on the device; value f32
+// (ms_deform_attn_bwd) or bf16 (ms_deform_attn_bwd_bf16), everything else
+// f32. d_value: f32 of value's shape, holding zeros. d_loc and d_attn have
+// loc's and attn's shapes and are overwritten. tile_ptr and tile_q as for
+// ms_deform_attn_fwd. shapes: host array of L (H, W) pairs. Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int ms_deform_attn_bwd(const void* value, const float* loc,
+                                  const float* attn, const float* grad_out,
+                                  float* d_value, float* d_loc, float* d_attn,
+                                  const int* tile_ptr, const int* tile_q,
+                                  const int* shapes, int B, int S, int M, int D,
+                                  int Q, int L, int P, int n_tiles,
+                                  void* stream) {
+  return launch(static_cast<const float*>(value), loc, attn, grad_out, d_value,
+                d_loc, d_attn, tile_ptr, tile_q, shapes, B, S, M, D, Q, L, P,
+                n_tiles, stream);
+}
+
+extern "C" int ms_deform_attn_bwd_bf16(const void* value, const float* loc,
+                                       const float* attn, const float* grad_out,
+                                       float* d_value, float* d_loc, float* d_attn,
+                                       const int* tile_ptr, const int* tile_q,
+                                       const int* shapes, int B, int S, int M,
+                                       int D, int Q, int L, int P, int n_tiles,
+                                       void* stream) {
+  return launch(static_cast<const Bf16Bits*>(value), loc, attn, grad_out, d_value,
+                d_loc, d_attn, tile_ptr, tile_q, shapes, B, S, M, D, Q, L, P,
+                n_tiles, stream);
 }

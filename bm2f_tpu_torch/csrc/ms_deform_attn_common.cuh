@@ -1,7 +1,8 @@
 // Shared by the deformable-attention forward (ms_deform_attn_fwd.cu, K1) and
 // backward (ms_deform_attn_bwd.cu, K2): the level table, the bilinear corners
-// of one sample, and the tiles a block takes. The backward re-samples `value`
-// with exactly the forward's arithmetic because both call `bilinear_corners`.
+// of one sample, the 16-byte row slices of an f32 or bf16 `value`, and the
+// tiles a block takes. The backward re-samples `value` with exactly the
+// forward's arithmetic because both call `bilinear_corners`.
 //
 // A block of either kernel owns one (b, m) and one tile of queries, tile t
 // holding the queries tile_q[tile_ptr[t] : tile_ptr[t + 1]]
@@ -10,6 +11,53 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bf16_bits.cuh"
+
+// 16 bytes of a `value` row as f32: 4 f32 or 8 bf16 channels. `load` reads
+// and upcasts at once; `load_raw` keeps the 16 bytes in 4 registers and
+// `unpack` upcasts them where they are used (K2 holds many rows in flight).
+template <typename T>
+struct Row16;
+
+template <>
+struct Row16<float> {
+  static constexpr int kElems = 4;
+  __device__ static void load(const float* p, float* v) {
+    const float4 r = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  }
+  __device__ static uint4 load_raw(const float* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static void unpack(const uint4& r, float* v) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+};
+
+template <>
+struct Row16<Bf16Bits> {
+  static constexpr int kElems = 8;
+  __device__ static void load(const Bf16Bits* p, float* v) { load_bf16x8(p, v); }
+  __device__ static uint4 load_raw(const Bf16Bits* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static void unpack(const uint4& r, float* v) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
 
 namespace msda {
 

@@ -45,10 +45,7 @@
 // train shapes (1024x1024, B=2); 0.088 ms on a bf16 `value`. The first
 // design took 0.31, 1.02 and 0.32 ms.
 
-#include "bf16_bits.cuh"
 #include "ms_deform_attn_common.cuh"
-
-#include <stdint.h>
 
 namespace {
 
@@ -56,28 +53,6 @@ using msda::kFull;
 using msda::kMaxDChunks;
 using msda::kThreads;
 using msda::kWarpsPerBlock;
-
-// 16 bytes of a row as f32
-template <typename T>
-struct Row16;
-
-template <>
-struct Row16<float> {
-  static constexpr int kElems = 4;
-  __device__ static void load(const float* p, float* v) {
-    const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = r.x;
-    v[1] = r.y;
-    v[2] = r.z;
-    v[3] = r.w;
-  }
-};
-
-template <>
-struct Row16<Bf16Bits> {
-  static constexpr int kElems = 8;
-  __device__ static void load(const Bf16Bits* p, float* v) { load_bf16x8(p, v); }
-};
 
 // kL, kP, kNC: L, P and D / 32 fixed at compile time, or 0 for any
 template <typename T, int kL, int kP, int kNC>

@@ -13,7 +13,10 @@ losses with deep supervision (reference: mask2former/modeling/criterion.py:
 
 Every random point comes in through `points` (see `draw_points`), so that a
 run is reproducible from a `torch.Generator` and the tests can hand the
-criterion the JAX package's own draws.
+criterion the JAX package's own draws. The assignment comes from
+`assign_fn`, as in the JAX `set_criterion(..., assign_fn=)`: the exact host
+solve by default, or what `matching.hungarian.make_assign_fn` picks from
+`train.matcher`.
 """
 
 from __future__ import annotations
@@ -139,12 +142,14 @@ def set_criterion(
     cfg: SetCriterionConfig,
     points: Mapping[str, torch.Tensor],
     mark: Optional[Callable[[str], None]] = None,
+    assign_fn: Callable[[torch.Tensor], torch.Tensor] = assign,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """outputs: pred_logits (B, Q, K+1), pred_masks (B, Q, h, w), aux_logits
     (L, B, Q, K+1), aux_masks (L, B, Q, h, w). targets: labels (B, G) int,
     masks (B, G, Hg, Wg) 0/1, valid (B, G) bool. points: `draw_points` for
-    L+1 layers, aux layers first. `mark(stage)`, when given, is called after
-    the matcher costs, after the host assignment and after the losses.
+    L+1 layers, aux layers first. `assign_fn` maps the (B, L+1, Q, G) costs
+    to the (B, L+1, G) assignment. `mark(stage)`, when given, is called
+    after the matcher costs, after the assignment and after the losses.
     Returns (total_loss, {loss_ce, loss_mask, loss_dice, loss_ce_0, ...})."""
     tgt_labels, tgt_valid = targets["labels"], targets["valid"]
     n_aux = outputs["aux_logits"].shape[0]
@@ -162,9 +167,9 @@ def set_criterion(
     ], 1)  # (B, L+1, Q, G)
     if mark is not None:
         mark("matcher_costs")
-    assignment = assign(costs)  # (B, L+1, G)
+    assignment = assign_fn(costs)  # (B, L+1, G)
     if mark is not None:
-        mark("host_lsa")
+        mark("assign")
 
     num_masks = tgt_valid.float().sum().clamp(min=1.0)
     losses: Dict[str, torch.Tensor] = {}

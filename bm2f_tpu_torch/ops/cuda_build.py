@@ -1,9 +1,10 @@
-"""Build the port's hand-written CUDA kernels with `nvcc` and load them with
+"""Build the port's hand-written CUDA kernels with `nvcc`, and its host C++
+sources (`*.cpp`: the LAP solver) with the host compiler, and load them with
 `ctypes`.
 
 Each source under `bm2f_tpu_torch/csrc/` exports plain C functions (no
-PyTorch headers), so one `nvcc` call per file takes seconds. Libraries go to
-`bm2f_tpu_torch/_build/` (listed in `.gitignore`), named by a hash of the
+PyTorch headers), so one compiler call per file takes seconds. Libraries go
+to `bm2f_tpu_torch/_build/` (listed in `.gitignore`), named by a hash of the
 source, the shared headers and the flags, and are built at first use,
 never at import.
 """
@@ -26,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -40,6 +42,27 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: $CXX, else c++ or g++ on PATH."""
+    for cand in (os.environ.get("CXX", ""), "c++", "g++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) found to build "
+                       "bm2f_tpu_torch/csrc/*.cpp: set CXX or put one on PATH")
+
+
+def _flags(source) -> Tuple[str, ...]:
+    return CXX_FLAGS if str(source).endswith(".cpp") else NVCC_FLAGS
+
+
+def _compiler(source) -> list:
+    """The compiler and its flags for one source: `.cpp` on the host
+    compiler, everything else with `nvcc`."""
+    cc = cxx_path() if str(source).endswith(".cpp") else nvcc_path()
+    return [cc, *_flags(source)]
+
+
 def library_path(source: str) -> Path:
     """Named by a hash of the source, every header under `csrc/` (a source
     may include any of them) and the flags, so that an edit to a shared
@@ -47,14 +70,14 @@ def library_path(source: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / source).read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(source)).encode())
     tag = h.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{tag}.so"
 
 
 def _compile(jobs) -> Dict[str, Tuple[Path, float, str]]:
     """jobs: {key: (source path, library path)}. Compiles every library not
-    yet built, one `nvcc` process each, all started together. Returns {key:
+    yet built, one compiler process each, all started together. Returns {key:
     (library, seconds, compiler log)}; raises if any compile fails."""
     procs, result = {}, {}
     for key, (src, lib) in jobs.items():
@@ -63,7 +86,7 @@ def _compile(jobs) -> Dict[str, Tuple[Path, float, str]]:
             continue
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [*_compiler(src), "-o", str(tmp), str(src)]
         procs[key] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), lib, tmp, time.perf_counter())
@@ -77,12 +100,12 @@ def _compile(jobs) -> Dict[str, Tuple[Path, float, str]]:
         os.replace(tmp, lib)
         result[key] = (lib, seconds, log)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("compile failed for " + "\n".join(failed))
     return result
 
 
 def build(sources: Iterable[str]) -> Dict[str, Tuple[Path, float, str]]:
-    """Compile every source not yet built, one `nvcc` process each, all
+    """Compile every source not yet built, one compiler process each, all
     started together. Returns {source: (library, seconds, compiler log)};
     raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -99,7 +122,7 @@ def build_variants(specs) -> Dict[object, ctypes.CDLL]:
         h = hashlib.sha256(src.read_bytes())
         for header in sorted(src.parent.glob("*.cuh")):
             h.update(header.name.encode() + header.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(_flags(src)).encode())
         lib = BUILD_DIR / "variants" / f"{src.stem}-{h.hexdigest()[:16]}.so"
         jobs[label] = (src, lib)
     return {label: ctypes.CDLL(str(lib)) for label, (lib, _, _) in _compile(jobs).items()}

@@ -20,11 +20,11 @@ the plain forward and the closed-form plain backward, CUDA tensors take K1
 and K2. `ms_deform_attn_plain` on its own is differentiated by autograd and
 serves as the independent reference on the card.
 
-`value` may be bf16 (the bf16 serving path): the forward then reads bf16
-rows and computes in f32 on the f32 locations and attention weights, into an
-f32 output, as the JAX package's Pallas path does. Its gradient (K2 on a
-bf16 `value`) is not ported yet, so the Function refuses a bf16 `value` when
-any input requires grad.
+`value` may be bf16 (bf16 serving and training): the forward then reads
+bf16 rows and computes in f32 on the f32 locations and attention weights,
+into an f32 output, as the JAX package's Pallas path does. The backward
+reads the same bf16 rows, computes in f32, sums d_value in f32 and rounds it
+to bf16 once; d_loc and d_attn stay f32.
 
 The kernels work in tiles of neighbouring queries of one head (`tile_plan`,
 built once per shape).
@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import warnings
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -130,7 +131,13 @@ def ms_deform_attn_bwd_plain(value, spatial_shapes, sampling_locations,
       d_value[s_c] += a w_c g              (index_add_ over all samples)
       d_attn        = sum_c w_c dot_c      (dot_c = <value[s_c], g>)
       d_loc         = a (W sum_c dw_c/dlx dot_c, H sum_c dw_c/dly dot_c)
-    where a corner outside the level contributes to none of the sums."""
+    where a corner outside the level contributes to none of the sums.
+    A bf16 `value` is upcast to f32 first and d_value rounded back to bf16
+    at the end, as K2 on a bf16 `value` does."""
+    if value.dtype == torch.bfloat16:
+        d_value, d_loc, d_attn = ms_deform_attn_bwd_plain(
+            value.float(), spatial_shapes, sampling_locations, attention_weights, grad_out)
+        return d_value.to(torch.bfloat16), d_loc, d_attn
     B, S, M, D = value.shape
     _, Q, _, L, P, _ = sampling_locations.shape
     starts = level_start_index(spatial_shapes)
@@ -292,19 +299,44 @@ ms_deform_attn_cuda.launches = 0
 ms_deform_attn_cuda.launches_bf16 = 0
 
 
+NONDETERMINISTIC = (
+    "ms_deform_attn_bwd_cuda (K2) sums d_value with atomic adds, so its last "
+    "bits change from run to run, but torch.use_deterministic_algorithms(True) "
+    "is set. A deterministic d_value is ROADMAP queue 2 item 2; until then "
+    "turn the setting off, or pass warn_only=True, to train on the card.")
+
+
+def _alert_nondeterministic() -> None:
+    """What PyTorch's atomic CUDA ops (`index_add_`) do under
+    `torch.use_deterministic_algorithms`: raise, or warn with warn_only."""
+    if torch.are_deterministic_algorithms_enabled():
+        if torch.is_deterministic_algorithms_warn_only_enabled():
+            warnings.warn(NONDETERMINISTIC, stacklevel=3)
+        else:
+            raise RuntimeError(NONDETERMINISTIC)
+
+
 def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations,
                             attention_weights, grad_out):
-    """Launch K2: (d_value, d_loc, d_attn) from contiguous f32 CUDA tensors,
-    grad_out (B, Q, M*D). Raises as `ms_deform_attn_cuda` does. d_value is
-    summed with atomics, so its last bits vary from run to run."""
+    """Launch K2: (d_value, d_loc, d_attn) from contiguous CUDA tensors,
+    `value` f32 or bf16 and the rest f32, grad_out (B, Q, M*D). d_value comes
+    in `value`'s dtype (a bf16 one summed in f32 and rounded once), d_loc and
+    d_attn in f32. Raises as `ms_deform_attn_cuda` does, and under
+    `torch.use_deterministic_algorithms(True)` (warns with warn_only): d_value
+    is summed with atomics, so its last bits vary from run to run. f32
+    launches count in `.launches`, bf16 launches in `.launches_bf16`."""
+    _alert_nondeterministic()
     B, S, M, D, Q, L, P = _cuda_dims(value, spatial_shapes, sampling_locations,
-                                     attention_weights, grad_out)
-    d_value = torch.zeros_like(value)
+                                     attention_weights, grad_out,
+                                     value_dtypes=(torch.float32, torch.bfloat16))
+    d_value = torch.zeros(value.shape, device=value.device, dtype=torch.float32)
     d_loc = torch.empty_like(sampling_locations)
     d_attn = torch.empty_like(attention_weights)
     if d_attn.numel() == 0:
-        return d_value, d_loc, d_attn
-    fn = _kernel(_BWD_SOURCE, "ms_deform_attn_bwd", n_tensors=7)
+        return d_value.to(value.dtype), d_loc, d_attn
+    bf16 = value.dtype == torch.bfloat16
+    fn = _kernel(_BWD_SOURCE, "ms_deform_attn_bwd_bf16" if bf16 else "ms_deform_attn_bwd",
+                 n_tensors=7)
     tile_ptr, tile_q, n_tiles = _device_plan(_shapes_key(spatial_shapes), Q, True,
                                              value.device)
     rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
@@ -314,11 +346,15 @@ def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations,
             torch.cuda.current_stream(value.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ms_deform_attn_bwd launch failed: CUDA error {rc}")
+    if bf16:
+        ms_deform_attn_bwd_cuda.launches_bf16 += 1
+        return d_value.to(torch.bfloat16), d_loc, d_attn
     ms_deform_attn_bwd_cuda.launches += 1
     return d_value, d_loc, d_attn
 
 
 ms_deform_attn_bwd_cuda.launches = 0
+ms_deform_attn_bwd_cuda.launches_bf16 = 0
 
 
 def _kernel(source: str, name: str, n_tensors: int):
@@ -338,10 +374,6 @@ class MSDeformAttnFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
-        if value.dtype == torch.bfloat16 and any(ctx.needs_input_grad):
-            raise NotImplementedError(
-                f"gradients through ms_deform_attn on a {value.dtype} value: K2 "
-                "takes f32 only (bf16 training is ROADMAP queue 1 item 10b)")
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, sampling_locations, attention_weights)
         if value.device.type == "cpu":

@@ -19,6 +19,7 @@ from bm2f_tpu_torch.models.maskformer import (
     semantic_inference,
 )
 from bm2f_tpu_torch.ops import resize_bilinear
+from bm2f_tpu_torch.utils.precision import f32_scope
 
 
 class Predictor:
@@ -48,25 +49,26 @@ class Predictor:
         """image: (H, W, 3) RGB. Pads to `size_divisibility`, runs the
         network, resizes the masks to the padded size and crops, then runs
         the three inference modes on the f32 predictions (in either model
-        dtype); the outputs on the host are f32."""
+        dtype); the outputs on the host are f32. An f32 model computes in
+        f32 (no TF32), whatever the global flags say."""
         H, W = image.shape[:2]
         d = self.cfg.model.size_divisibility
         ph, pw = (H + d - 1) // d * d, (W + d - 1) // d * d
         x = torch.zeros((1, ph, pw, 3), dtype=torch.float32)
         x[0, :H, :W] = torch.from_numpy(np.asarray(image, np.float32))
         x = normalize_images(x.to(self.device), self.cfg.model)
-        out = self.model(x)
-        logits = out["pred_logits"][0]
-        masks = resize_bilinear(out["pred_masks"][0], ph, pw)[:, :H, :W]
-
         K = self.cfg.model.num_classes
-        sem = semantic_inference(logits, masks)
-        inst = instance_inference(logits, masks, num_classes=K, topk=100)
-        pan = panoptic_inference(
-            logits, masks, num_classes=K, thing_mask=tuple([True] * K),
-            object_mask_threshold=self.cfg.model.test.object_mask_threshold,
-            overlap_threshold=self.cfg.model.test.overlap_threshold,
-        )
+        with f32_scope(self.cfg.model.dtype):
+            out = self.model(x)
+            logits = out["pred_logits"][0]
+            masks = resize_bilinear(out["pred_masks"][0], ph, pw)[:, :H, :W]
+            sem = semantic_inference(logits, masks)
+            inst = instance_inference(logits, masks, num_classes=K, topk=100)
+            pan = panoptic_inference(
+                logits, masks, num_classes=K, thing_mask=tuple([True] * K),
+                object_mask_threshold=self.cfg.model.test.object_mask_threshold,
+                overlap_threshold=self.cfg.model.test.overlap_threshold,
+            )
         seg_map, seg_info = relabel_panoptic(
             {k: v.cpu().numpy() for k, v in pan.items()})
         return {

@@ -1,9 +1,12 @@
 """Where the device time of one train step goes, on the card.
 
     python -m bm2f_tpu_torch.tools.profile_train [--out output/profile_train.txt]
+        [--set KEY=VALUE ...]
 
 Builds `Trainer("coco_instance_r50")` at full width with seeded random
-weights (deformable projections perturbed as in `chip_smoke.py`) and
+weights, with `--set` overrides as the train entry point takes them (the JAX
+train bench's bf16 step: `--set model.dtype=bfloat16 --set
+model.pixel_decoder_f32=False --set train.matcher=jv`) (deformable projections perturbed as in `chip_smoke.py`) and
 `chip_smoke.py`'s train batch (B=2, 1024x1024, 8 targets per image), takes
 one warm-up step, times 5 steps without the profiler (host clock, each
 ending in a synchronise), then profiles one step with `torch.profiler`.
@@ -24,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from bm2f_tpu_torch.config import get_config
+from bm2f_tpu_torch.config import get_config, parse_override
 from bm2f_tpu_torch.tools.profile_request import perturb_deformable
 from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
 
@@ -44,14 +47,15 @@ def timed_step(trainer: Trainer, batch) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="output/profile_train.txt")
+    ap.add_argument("--set", action="append", default=[], type=parse_override,
+                    metavar="KEY=VALUE")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    trainer = Trainer(get_config("coco_instance_r50"), device=dev, seed=0)
+    cfg = get_config("coco_instance_r50", dict(args.set))
+    trainer = Trainer(cfg, device=dev, seed=0)
     perturb_deformable(trainer.model)
     batch = synthetic_batch(2, 1024, 8, seed=0, device=dev)
     timed_step(trainer, batch)  # warm-up
@@ -69,7 +73,9 @@ def main(argv=None) -> int:
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     n_ops = sum(e.count for e in dev_events)
-    print(f"device={torch.cuda.get_device_name(0)!r} batch=2 size=1024 instances=8")
+    print(f"device={torch.cuda.get_device_name(0)!r} batch=2 size=1024 instances=8 "
+          f"dtype={cfg.model.dtype} pixel_decoder_f32={cfg.model.pixel_decoder_f32} "
+          f"matcher={cfg.train.matcher}")
     print("unprofiled_steps_ms " + " ".join(f"{t:.2f}" for t in plain)
           + f" median={step_ms:.2f}")
     print(f"profiled_step_ms={profiled_ms:.2f} profiler_overhead_ms="

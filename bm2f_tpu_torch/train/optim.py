@@ -23,7 +23,7 @@ launches for the whole model.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, Dict, List, Mapping, NamedTuple
 
 import torch
 import torch.nn as nn
@@ -95,6 +95,28 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0  # updates made so far
+
+    def state_dict(self) -> Dict[str, object]:
+        """The update count and both moments, by parameter name (optax's
+        ScaleByAdamState: count, mu, nu); tensors are copies."""
+        return {"count": self.count,
+                "mu": {g.name: m.detach().clone() for g, m in zip(self.groups, self.mu)},
+                "nu": {g.name: n.detach().clone() for g, n in zip(self.groups, self.nu)}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, object]) -> None:
+        """Restores `state_dict()`'s count and moments, bit for bit, into
+        this optimizer's tensors. Raises unless it names exactly this
+        optimizer's parameters."""
+        names = [g.name for g in self.groups]
+        for key in ("mu", "nu"):
+            if sorted(state[key]) != sorted(names):
+                raise KeyError(f"optimizer state {key} names other parameters than "
+                               f"the model's: {sorted(set(state[key]) ^ set(names))[:5]}")
+        for g, m, n in zip(self.groups, self.mu, self.nu):
+            m.copy_(state["mu"][g.name])
+            n.copy_(state["nu"][g.name])
+        self.count = int(state["count"])
 
     def zero_grad(self) -> None:
         for p in self.params:

@@ -2,14 +2,22 @@
 `make_train_step` / `Trainer` (bm2f_tpu/train/trainer.py:36-152) for
 mask-supervised image training (`model.loss.sup_type == "mask"`).
 
-A step is: forward, matcher costs, one host LSA, losses, backward, clip +
-AdamW. It returns the same metrics as the JAX step: every loss,
-`total_loss` and `grad_norm` (before clipping). The deformable encoder
-layers run K1 forward and K2 backward on the card
-(`ops.deform_attn.MSDeformAttnFunction`), which saves only each layer's
-inputs; the port does not rematerialise (`PixelDecoderConfig.remat` only
-changes memory, and the JAX package needs it for the gathered rows its
-formulation keeps).
+A step is: forward, matcher costs, the assignment (`train.matcher`:
+`matching.hungarian.make_assign_fn`), losses, backward, clip + AdamW. It
+returns the same metrics as the JAX step: every loss, `total_loss` and
+`grad_norm` (before clipping). The deformable encoder layers run K1 forward
+and K2 backward on the card (`ops.deform_attn.MSDeformAttnFunction`), which
+saves only each layer's inputs; the port does not rematerialise
+(`PixelDecoderConfig.remat` only changes memory, and the JAX package needs
+it for the gathered rows its formulation keeps).
+
+`model.dtype` "bfloat16" trains as the JAX bench does: the model computes
+in bf16 (K1 and K2 on a bf16 `value` when the pixel decoder does too), its
+parameters and the AdamW moments stay f32, as in the JAX `TrainState`, and
+there is no loss scaling, as there is none in JAX. An f32 model computes in
+f32 (`utils.precision.f32_scope`: no TF32), whatever the global flags say.
+`state_dict()` holds what the JAX `TrainState` holds, for
+`train.checkpoint.Checkpointer`.
 """
 
 from __future__ import annotations
@@ -23,8 +31,10 @@ import torch
 
 from bm2f_tpu_torch.config import Config
 from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, draw_points, set_criterion
+from bm2f_tpu_torch.matching.hungarian import make_assign_fn
 from bm2f_tpu_torch.models.maskformer import build_model, normalize_images
 from bm2f_tpu_torch.train.optim import AdamW
+from bm2f_tpu_torch.utils.precision import f32_scope
 
 log = logging.getLogger(__name__)
 
@@ -52,10 +62,6 @@ def _check_trainable(cfg: Config) -> None:
         raise NotImplementedError(
             f"sup_type {cfg.model.loss.sup_type!r}: weak supervision is ROADMAP "
             "queue 1 item 19")
-    if cfg.model.dtype != "float32":
-        raise NotImplementedError(
-            f"model.dtype {cfg.model.dtype!r}: bf16 training (K2 on a bf16 value) "
-            "is ROADMAP queue 1 item 10b")
 
 
 def synthetic_batch(batch: int, size: int, instances: int, seed: int,
@@ -114,10 +120,34 @@ class Trainer:
         self.device = torch.device(device)
         self.model = build_model(cfg, device=self.device, seed=seed).train()
         self.ccfg = criterion_config(cfg)
+        self.assign_fn = make_assign_fn(cfg)
         self.optimizer = AdamW(self.model, cfg.train.optimizer)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         log.info("training without rematerialisation: each deformable "
                  "encoder layer saves only its inputs for K2")
+
+    @property
+    def step_count(self) -> int:
+        """Steps taken (the JAX `TrainState.step`)."""
+        return self.optimizer.count
+
+    def state_dict(self) -> Dict[str, object]:
+        """What the JAX `TrainState` holds: the step, the parameters and the
+        FrozenBN buffers (the model's `state_dict`), the AdamW moments and
+        count, and the criterion generator's state (JAX's `rng`)."""
+        return {"step": self.step_count, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: Mapping[str, object]) -> None:
+        """Restores `state_dict()` bit for bit; raises on a missing or an
+        extra key or a step that disagrees with the optimizer's count."""
+        if int(state["step"]) != int(state["optimizer"]["count"]):
+            raise ValueError(f"step {state['step']} but the optimizer has made "
+                             f"{state['optimizer']['count']} updates")
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"])
 
     def loss(self, batch: Mapping[str, torch.Tensor],
              points: Optional[Mapping[str, torch.Tensor]] = None,
@@ -135,22 +165,23 @@ class Trainer:
             points = draw_points(self.ccfg, out["aux_logits"].shape[0] + 1,
                                  out["pred_logits"].shape[0], self.generator)
         targets = {k: batch[k] for k in ("labels", "masks", "valid")}
-        return set_criterion(out, targets, self.ccfg, points, mark)
+        return set_criterion(out, targets, self.ccfg, points, mark, self.assign_fn)
 
     def step(self, batch: Mapping[str, torch.Tensor],
              points: Optional[Mapping[str, torch.Tensor]] = None,
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         """One optimizer step. Returns every loss, total_loss and grad_norm
         as 0-d device tensors. `mark(stage)`, when given, is called after
-        forward, matcher_costs, host_lsa, losses, backward and optimizer."""
-        self.optimizer.zero_grad()
-        total, losses = self.loss(batch, points, mark=mark)
-        total.backward()
-        if mark is not None:
-            mark("backward")
-        grad_norm = self.optimizer.step()
-        if mark is not None:
-            mark("optimizer")
+        forward, matcher_costs, assign, losses, backward and optimizer."""
+        with f32_scope(self.cfg.model.dtype):
+            self.optimizer.zero_grad()
+            total, losses = self.loss(batch, points, mark=mark)
+            total.backward()
+            if mark is not None:
+                mark("backward")
+            grad_norm = self.optimizer.step()
+            if mark is not None:
+                mark("optimizer")
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         metrics["grad_norm"] = grad_norm

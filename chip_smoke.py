@@ -50,11 +50,34 @@ Phases, each printing its own line:
      pred_logits and pred_masks against the plain path in bf16 and against
      the f32 kernel path on the same weights; then one request with
      pixel_decoder_f32=True, where K1-f32 launches 6 times;
- 15. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
+ 15. K2 on a bf16 `value` against its plain version (which upcasts, computes
+     in f32 and rounds d_value to bf16 once) on the card: edge cases and the
+     train-path shapes, each run twice (d_loc and d_attn bitwise equal,
+     d_value within a tolerance scaled by its largest element), then timed
+     (the wrapper calls) beside the plain version and the bound;
+ 16. the bf16 train path: `Trainer` on `coco_instance_r50` at full width in
+     the JAX train bench's configuration (model.dtype=bfloat16,
+     pixel_decoder_f32=False, train.matcher=jv), B=2, 1024x1024, 8 targets:
+     one warm-up step and 3 timed steps with every count set to 0 just
+     before and read just after (K1-bf16 and K2-bf16 6 launches a step,
+     K1-f32 and K2-f32 none); finite losses, nonzero gradients of every
+     encoder layer's deformable projections, the split by stage and peak
+     memory; then the loss and every gradient through the kernels against
+     the plain path in bf16 on the same random points, norm-relative;
+ 17. the matcher on the card: `jv_assign` on the device against the host
+     LAP on the cost matrices of the warm-up step of phase 16 (the same
+     query for every valid target, the same total cost), both timed;
+ 18. checkpoint and resume: phase 16's trainer saved, a fresh trainer
+     resumed from it (`Checkpointer.resume_or_load`), its whole state
+     bitwise equal; one more step from each, the losses equal and the
+     gradient norms within K2's atomics tolerance;
+ 19. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
 
 Any failure raises and the script exits non-zero. It imports nothing of JAX
 or of the JAX package. TF32 is off for matmuls and convolutions throughout.
+The kernels build in phase 2 with the native LAP solver (`csrc/lap.cpp`,
+the host compiler) beside them.
 """
 
 from __future__ import annotations
@@ -62,8 +85,11 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -111,6 +137,29 @@ BF16_VS_PLAIN_REL = BF16_VS_F32_REL = 0.05
 # bf16 serving: the bench's configuration, and with the pixel decoder in f32
 BF16 = {"model.dtype": "bfloat16", "model.pixel_decoder_f32": False}
 BF16_PD_F32 = {"model.dtype": "bfloat16", "model.pixel_decoder_f32": True}
+# the bf16 train path: the JAX train bench's configuration (bench.py:315-322)
+TRAIN_BF16 = {"model.dtype": "bfloat16", "model.pixel_decoder_f32": False,
+              "train.matcher": "jv"}
+# K2 on a bf16 value against the plain bf16 backward: both round an f32 sum
+# of d_value to bf16 once, the sums in another order, so an element may
+# round to the neighbouring bf16 (2^-8 of it) or move by the f32 noise of
+# the largest sum (as tests/test_torch_cuda.py)
+BF16_D_VALUE_RTOL, BF16_D_VALUE_ATOL_OF_MAX = 2.0 ** -7, 1e-5
+# the bf16 step, the loss and all gradients (norm-relative, every parameter
+# at once) through K1-bf16 + K2-bf16 against autograd of the plain path in
+# bf16, on the same weights, batch and random points. Read on an H100 in two
+# runs: loss 7.9e-4 and 6.2e-4, gradients 5.0e-2 and 5.7e-2 (backbone 0.10,
+# 0.12): the two paths round K1's f32 sums differently before the bf16
+# output projection, and bf16 carries that through the network as it
+# carries its own rounding (JAX's bf16 gradients sit 0.13 from its f32 ones,
+# tests/test_torch_train_bf16.py); held at 2.5x the largest readings. K2-bf16
+# itself is held sharply in phase 15
+BF16_TRAIN_LOSS_REL, BF16_TRAIN_GRAD_REL = 2e-3, 0.15
+# a resumed trainer's step against the saved trainer's: the forward is the
+# same computation (losses equal to f32 rounding); the gradient norm goes
+# through K2's atomics and cuDNN's backward. Read on an H100: losses equal,
+# gradient norm 6.4e-6
+RESUME_LOSS_RTOL, RESUME_GRAD_NORM_RTOL = 1e-6, 1e-4
 # the probe: level sizes of every impl; CUDA-event launches
 PROBE_LEVELS, PROBE_ITERS = (625, 2500, 10000), 20
 # the probe's row of each kernel in the kernels line
@@ -190,13 +239,14 @@ def deform_bound_ms(B, shapes, Q, L, loc, value_bytes=4):
     return (*bound_ms(n_bytes, flops), n_bytes, flops)
 
 
-def deform_bwd_bound_ms(B, shapes, Q, L, loc):
+def deform_bwd_bound_ms(B, shapes, Q, L, loc, value_bytes=4):
     """K2: reads value, loc, attn and grad_out once and writes d_value,
-    d_loc and d_attn once; per valid corner and channel one FMA for the dot
-    product and a multiply and an add into d_value."""
+    d_loc and d_attn once (value and d_value `value_bytes` an element, the
+    rest f32); per valid corner and channel one FMA for the dot product and
+    a multiply and an add into d_value."""
     S = sum(h * w for h, w in shapes)
-    n_bytes = 4 * 2 * (B * S * M * D + B * Q * M * L * P * 2 + B * Q * M * L * P) \
-        + 4 * B * Q * M * D
+    n_bytes = value_bytes * 2 * B * S * M * D \
+        + 4 * 2 * (B * Q * M * L * P * 2 + B * Q * M * L * P) + 4 * B * Q * M * D
     flops = 4 * D * valid_corners(shapes, loc)
     return (*bound_ms(n_bytes, flops), n_bytes, flops)
 
@@ -300,9 +350,9 @@ def reset_counts():
         row_gather_sum_onehot_cuda,
     )
 
-    for fn in (ms_deform_attn_cuda, row_gather_sum_cuda, row_gather_sum_onehot_cuda):
+    for fn in (ms_deform_attn_cuda, ms_deform_attn_bwd_cuda, row_gather_sum_cuda,
+               row_gather_sum_onehot_cuda):
         fn.launches = fn.launches_bf16 = 0
-    ms_deform_attn_bwd_cuda.launches = 0
 
 
 def serve(pred, images, path: str) -> list:
@@ -399,10 +449,12 @@ def train_path(trainer, dev):
             loss_dice=f"{metrics['loss_dice']:.4f}",
             grad_norm=f"{metrics['grad_norm']:.4f}", step_ms=f"{step_ms[-1]:.2f}")
     launches = (ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches)
+    bf16_launches = (ms_deform_attn_cuda.launches_bf16, ms_deform_attn_bwd_cuda.launches_bf16)
     n_layers = len(trainer.model.sem_seg_head.pixel_decoder.transformer.encoder.layers)
-    if launches != (n_layers * TRAIN_STEPS,) * 2:
+    if launches != (n_layers * TRAIN_STEPS,) * 2 or bf16_launches != (0, 0):
         raise AssertionError(f"K1, K2 launched {launches} times in {TRAIN_STEPS} "
-                             f"steps, expected {n_layers * TRAIN_STEPS} each")
+                             f"steps, expected {n_layers * TRAIN_STEPS} each, and "
+                             f"on a bf16 value {bf16_launches}, expected none")
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     # the gradient reaches every deformable projection through K2
@@ -465,7 +517,7 @@ def _grad_path(trainer, batch, points, params, impl="auto", fwd=None, bwd=None,
             stack.enter_context(_watch(pixel_decoder, name, locs,
                                        lambda a, o: (a[1], a[2].detach())))
         stack.enter_context(_watch(criterion, "_importance_weights", sel, lambda a, o: o))
-        stack.enter_context(_watch(criterion, "assign", asg, lambda a, o: o))
+        stack.enter_context(_watch(trainer, "assign_fn", asg, lambda a, o: o))
         if k2_calls is not None:
             stack.enter_context(_watch(deform_attn, "ms_deform_attn_bwd_cuda", k2_calls,
                                        lambda a, o: (a, o)))
@@ -731,6 +783,263 @@ def serve_bf16(dev, images):
     return launches
 
 
+def check_k2_bf16(dev, gen):
+    """Phase 15: K2 on a bf16 `value` against the plain bf16 backward on
+    K1's edge cases and the train-path shapes, twice each, then timed at the
+    train shapes beside the plain version and the bound. Returns (max abs
+    error over the three gradients at the train shapes, (ms, plain ms,
+    bound ms, bound_by))."""
+    from bm2f_tpu_torch.ops.deform_attn import (
+        ms_deform_attn_bwd_cuda,
+        ms_deform_attn_bwd_plain,
+    )
+
+    S_train = sum(h * w for h, w in TRAIN_SHAPES)
+    cases = [
+        (2, ((1, 7), (5, 1), (4, 6)), 777, (-0.2, 1.2)),
+        (1, ((1, 1), (3, 9)), 1001, (-0.2, 1.2)),
+        (TRAIN_BATCH, TRAIN_SHAPES, S_train, None),
+    ]
+    for B, shapes, Q, rng in cases:
+        v, loc, attn = deform_inputs(B, shapes, Q, gen, dev, rng)
+        v = v.to(torch.bfloat16)
+        g = torch.randn(B, Q, M * D, generator=gen).to(dev)
+        first = ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g)
+        second = ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g)
+        torch.cuda.synchronize()
+        want = ms_deform_attn_bwd_plain(v, shapes, loc, attn, g)
+        if first[0].dtype != torch.bfloat16:
+            raise AssertionError(f"d_value came back {first[0].dtype}, not bf16")
+        scale = want[0].float().abs().max().item()
+        errs = {}
+        for name, a, b, w in zip(GRAD_TOL, first, second, want):
+            a, b, w = a.float(), b.float(), w.float()
+            if name == "d_value":
+                tol = dict(rtol=BF16_D_VALUE_RTOL, atol=BF16_D_VALUE_ATOL_OF_MAX * scale)
+                torch.testing.assert_close(a, w, msg=name, **tol)
+                torch.testing.assert_close(a, b, msg="d_value repeat", **tol)
+                errs["d_value_repeat"] = (a - b).abs().max().item()
+            else:
+                torch.testing.assert_close(a, w, msg=name, **GRAD_TOL[name])
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} differs between two runs of K2-bf16")
+            errs[name] = (a - w).abs().max().item()
+        log("check_bwd", kernel="ms_deform_attn_bwd_bf16", case="edge" if rng else "train",
+            B=B, shapes=shapes, Q=Q, d_value_max=f"{scale:.3e}",
+            **{f"{k}_max_abs_err": f"{e:.3e}" for k, e in errs.items()})
+    L = len(TRAIN_SHAPES)
+    k_ms = cuda_ms(lambda: ms_deform_attn_bwd_cuda(v, TRAIN_SHAPES, loc, attn, g), 20)
+    p_ms = cuda_ms(lambda: ms_deform_attn_bwd_plain(v, TRAIN_SHAPES, loc, attn, g), 3)
+    bound, by, n_bytes, flops = deform_bwd_bound_ms(B, TRAIN_SHAPES, Q, L, loc, value_bytes=2)
+    log("time", kernel="ms_deform_attn_bwd_bf16", B=B, tiles=n_tiles(TRAIN_SHAPES, Q, True),
+        ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+        bytes=n_bytes, flops=flops, share_of_bound=f"{bound / k_ms:.3f}")
+    return max(errs[k] for k in GRAD_TOL), (k_ms, p_ms, bound, by)
+
+
+def make_trainer_bf16(dev, seed=0):
+    """The full-width trainer in the JAX train bench's bf16 configuration,
+    deformable projections perturbed as `make_trainer`'s."""
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(get_config(CONFIG, TRAIN_BF16), device=dev, seed=seed)
+    perturb_deformable(trainer.model)
+    return trainer
+
+
+def train_path_bf16(trainer, dev):
+    """Phase 16: the bf16 trainer's step at full width. Returns (K1-bf16 and
+    K2-bf16 launches over the timed steps, the batch, the warm-up step's
+    (B, L+1, Q, G) cost matrices)."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+    from bm2f_tpu_torch.train.trainer import StageTimer, synthetic_batch
+
+    t0 = time.perf_counter()
+    batch = synthetic_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_INSTANCES, seed=0, device=dev)
+    costs = []
+    with _watch(trainer, "assign_fn", costs, lambda a, o: a[0].detach().clone()):
+        trainer.step(batch)  # warm-up (cuDNN algorithm choice), not counted
+    torch.cuda.synchronize()
+    log("train_setup_bf16", config=CONFIG, **{k.split(".")[-1]: v for k, v in TRAIN_BF16.items()},
+        batch=TRAIN_BATCH, size=TRAIN_SIZE, instances=TRAIN_INSTANCES,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    torch.cuda.reset_peak_memory_stats()
+
+    timer = StageTimer(dev)
+    reset_counts()
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        timer.start()
+        t = time.perf_counter()
+        metrics = {k: v.item() for k, v in trainer.step(batch, mark=timer).items()}
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"bf16 step {i}: non-finite {bad}")
+        log("train_step_bf16", step=i, total_loss=f"{metrics['total_loss']:.4f}",
+            loss_ce=f"{metrics['loss_ce']:.4f}", loss_mask=f"{metrics['loss_mask']:.4f}",
+            loss_dice=f"{metrics['loss_dice']:.4f}",
+            grad_norm=f"{metrics['grad_norm']:.4f}", step_ms=f"{step_ms[-1]:.2f}")
+    launches = {"k1_bf16": ms_deform_attn_cuda.launches_bf16,
+                "k2_bf16": ms_deform_attn_bwd_cuda.launches_bf16,
+                "k1_f32": ms_deform_attn_cuda.launches, "k2_f32": ms_deform_attn_bwd_cuda.launches}
+    layers = trainer.model.sem_seg_head.pixel_decoder.transformer.encoder.layers
+    want = {"k1_bf16": len(layers) * TRAIN_STEPS, "k2_bf16": len(layers) * TRAIN_STEPS,
+            "k1_f32": 0, "k2_f32": 0}
+    if launches != want:
+        raise AssertionError(f"bf16 steps launched {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    grads = {}
+    for i, layer in enumerate(layers):
+        for name in ("value_proj", "sampling_offsets", "attention_weights"):
+            w = getattr(layer.self_attn, name).weight.grad
+            grads[f"{i}.{name}"] = 0.0 if w is None else w.abs().sum().item()
+    zero = [k for k, v in grads.items() if not v > 0]
+    if zero:
+        raise AssertionError(f"no gradient reached encoder projections {zero}")
+    dtypes = {p.dtype for p in trainer.model.parameters()} | {
+        m.dtype for m in trainer.optimizer.mu + trainer.optimizer.nu}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"bf16 training holds parameters or moments in {dtypes}")
+    log("train_grads_bf16", min_abs_sum=f"{min(grads.values()):.3e}",
+        **{k.replace(".", "_"): f"{v:.3e}" for k, v in grads.items() if k.startswith("0.")})
+    log("train_main_bf16", **{f"{k}_launches": v for k, v in launches.items()},
+        step_ms_mean=f"{sum(step_ms) / len(step_ms):.2f}",
+        step_ms_median=f"{statistics.median(step_ms):.2f}", peak_mem_gib=f"{peak:.2f}")
+    log("train_stages_bf16", **{k: f"{v / TRAIN_STEPS:.2f}ms" for k, v in timer.ms.items()})
+    return (launches["k1_bf16"], launches["k2_bf16"]), batch, costs[0]
+
+
+def grad_parity_bf16(trainer, dev):
+    """Phase 16, second part: one B=1 1024x1024 loss and every gradient of
+    the bf16 trainer through K1-bf16 + K2-bf16 against autograd of the plain
+    path in bf16, on the same weights, batch and random points."""
+    from bm2f_tpu_torch.losses.criterion import draw_points
+    from bm2f_tpu_torch.train.trainer import synthetic_batch
+
+    batch = synthetic_batch(1, TRAIN_SIZE, TRAIN_INSTANCES, seed=1, device=dev)
+    points = draw_points(trainer.ccfg, trainer.cfg.model.decoder.dec_layers + 1, 1,
+                         torch.Generator(device=dev).manual_seed(5))
+    names, params = zip(*trainer.model.named_parameters())
+    res = {}
+    for impl in ("auto", "plain"):
+        total, _ = trainer.loss(batch, points, deform_impl=impl)
+        res[impl] = (total.item(), torch.autograd.grad(total, params))
+    (lk, gk), (lp, gp) = res["auto"], res["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    flat = [torch.cat([g.reshape(-1).double() for g in gs]) for gs in (gk, gp)]
+    grad_rel = rel_err(flat[0], flat[1])
+    parts = {}
+    for part in ("backbone", "sem_seg_head.pixel_decoder", "sem_seg_head.predictor"):
+        idx = [i for i, n in enumerate(names) if n.startswith(part + ".")]
+        parts[part.split(".")[-1]] = rel_err(torch.cat([gk[i].reshape(-1) for i in idx]),
+                                             torch.cat([gp[i].reshape(-1) for i in idx]))
+    per = [rel_err(a, b) for a, b in zip(gk, gp)]
+    worst = max(range(len(per)), key=per.__getitem__)
+    log("grad_parity_bf16", loss_kernel=f"{lk:.6f}", loss_plain=f"{lp:.6f}",
+        loss_rel=f"{loss_rel:.3e}", grads_rel=f"{grad_rel:.3e}",
+        **{f"{k}_rel": f"{v:.3e}" for k, v in parts.items()},
+        worst_param=f"{per[worst]:.3e}@{names[worst]}")
+    if not (np.isfinite(lk) and loss_rel <= BF16_TRAIN_LOSS_REL
+            and grad_rel <= BF16_TRAIN_GRAD_REL):
+        raise AssertionError(f"bf16 kernel path against plain: loss {loss_rel:.3e} (limit "
+                             f"{BF16_TRAIN_LOSS_REL}), gradients {grad_rel:.3e} (limit "
+                             f"{BF16_TRAIN_GRAD_REL})")
+
+
+def matcher_on_card(costs, valid):
+    """Phase 17: `jv_assign` on the card against the host LAP on one step's
+    (B, L+1, Q, G) costs; each timed (host clock to a synchronise, median of
+    5 after one warm-up). Returns the two medians in ms."""
+    from bm2f_tpu_torch.matching.hungarian import assign, jv_assign
+
+    B, L1, Q, G = costs.shape
+    flat = costs.reshape(B * L1, Q, G)
+
+    def timed(fn):
+        out, ms = None, []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, statistics.median(ms[1:])
+
+    jv, jv_ms = timed(lambda: jv_assign(flat))
+    host, host_ms = timed(lambda: assign(flat))
+    if jv.device != costs.device or host.device != costs.device:
+        raise AssertionError("an assignment left the costs' device")
+    ok = valid.repeat_interleave(L1, 0)  # (B*(L+1), G)
+    differ = int((jv != host)[ok].sum())
+    cols = torch.arange(G, device=costs.device)
+    total = [flat.double()[torch.arange(B * L1, device=costs.device)[:, None], a, cols]
+             .where(ok, 0.0).sum(1) for a in (jv, host)]
+    gap = (total[0] - total[1]).abs().max().item()
+    one_to_one = all(len(set(r.tolist())) == G for r in jv.cpu())
+    log("matcher", problems=B * L1, Q=Q, G=G, valid_targets=int(ok.sum()),
+        assignments_differing=differ, max_total_cost_gap=f"{gap:.3e}",
+        jv_device_ms=f"{jv_ms:.3f}", host_lap_ms=f"{host_ms:.3f}")
+    if differ or gap > 1e-3 or not one_to_one:
+        raise AssertionError(f"jv_assign on the card differs from the host LAP on {differ} "
+                             f"valid targets (cost gap {gap}, one-to-one {one_to_one})")
+    return jv_ms, host_ms
+
+
+def _same_state(a, b) -> list:
+    """The keys where two `Trainer.state_dict()`s differ in any bit."""
+    bad = [k for k in ("step",) if a[k] != b[k]]
+    bad += [f"model.{k}" for k in a["model"] if not torch.equal(a["model"][k], b["model"][k])]
+    bad += [k for k in ("count",) if a["optimizer"][k] != b["optimizer"][k]]
+    for m in ("mu", "nu"):
+        bad += [f"{m}.{k}" for k in a["optimizer"][m]
+                if not torch.equal(a["optimizer"][m][k], b["optimizer"][m][k])]
+    if not torch.equal(a["generator"], b["generator"]):
+        bad.append("generator")
+    return bad
+
+
+def checkpoint_resume(trainer, batch, dev):
+    """Phase 18: save the trainer, resume a fresh one (another seed) from
+    the checkpoint, check the whole state bitwise, then one more step from
+    each."""
+    from bm2f_tpu_torch.train.checkpoint import Checkpointer
+
+    out_dir = ROOT / "output"
+    out_dir.mkdir(exist_ok=True)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=out_dir)
+    try:
+        ckpt = Checkpointer(directory)
+        t0 = time.perf_counter()
+        ckpt.save(trainer.step_count, trainer)
+        save_s = time.perf_counter() - t0
+        fresh = make_trainer_bf16(dev, seed=1)
+        t0 = time.perf_counter()
+        step = ckpt.resume_or_load(fresh, resume=True)
+        restore_s = time.perf_counter() - t0
+        size_mb = sum(f.stat().st_size for f in Path(directory).rglob("*") if f.is_file()) / 1e6
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    bad = _same_state(fresh.state_dict(), trainer.state_dict())
+    if step != trainer.step_count or bad:
+        raise AssertionError(f"resumed at {step} of {trainer.step_count}; differing: {bad[:8]}")
+    after = [{k: v.item() for k, v in t.step(batch).items()} for t in (trainer, fresh)]
+    loss_rel = max(abs(after[1][k] - after[0][k]) / abs(after[0][k])
+                   for k in after[0] if k != "grad_norm")
+    gn_rel = abs(after[1]["grad_norm"] - after[0]["grad_norm"]) / after[0]["grad_norm"]
+    log("resume", step=step, checkpoint_mb=f"{size_mb:.1f}", save_s=f"{save_s:.2f}",
+        restore_s=f"{restore_s:.2f}", state_keys=len(trainer.state_dict()["model"]),
+        next_total_loss=f"{after[0]['total_loss']:.6f}",
+        max_loss_rel=f"{loss_rel:.3e}", grad_norm_rel=f"{gn_rel:.3e}")
+    if not (loss_rel <= RESUME_LOSS_RTOL and gn_rel <= RESUME_GRAD_NORM_RTOL):
+        raise AssertionError(f"the resumed step differs: losses {loss_rel:.3e} (limit "
+                             f"{RESUME_LOSS_RTOL}), grad_norm {gn_rel:.3e} (limit "
+                             f"{RESUME_GRAD_NORM_RTOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -763,13 +1072,13 @@ def main() -> int:
     print(f"nvidia-smi: {smi}", flush=True)
 
     # -- 2. build -----------------------------------------------------------
-    sources = sorted(p.name for p in cuda_build.CSRC_DIR.glob("*.cu"))
+    sources = sorted(p.name for ext in ("*.cu", "*.cpp") for p in cuda_build.CSRC_DIR.glob(ext))
     t0 = time.perf_counter()
     built = cuda_build.build(sources)
     log("build", sources=",".join(sources), seconds=f"{time.perf_counter() - t0:.2f}")
     for src, (lib, secs, compiler_log) in built.items():
         ptxas = [ln.strip() for ln in compiler_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "entry function" in ln]
         log("build", source=src, seconds=f"{secs:.2f}", ptxas=repr(" | ".join(ptxas)))
 
     # -- 3. kernel against its plain version --------------------------------
@@ -888,8 +1197,26 @@ def main() -> int:
 
     # -- 14. bf16 serving -----------------------------------------------------------
     bf16_launches = serve_bf16(dev, images)
+    torch.cuda.empty_cache()
 
-    # -- 15. result ---------------------------------------------------------
+    # -- 15. K2 on a bf16 value ---------------------------------------------------
+    k2b_err, (k2b_ms, k2b_plain_ms, k2b_bound, k2b_by) = check_k2_bf16(dev, gen)
+    torch.cuda.empty_cache()
+
+    # -- 16. the bf16 train path ------------------------------------------------------
+    trainer = make_trainer_bf16(dev)
+    (k1b_train, k2b_train), batch, step_costs = train_path_bf16(trainer, dev)
+    grad_parity_bf16(trainer, dev)
+
+    # -- 17. the matcher on the card ----------------------------------------------------
+    matcher_on_card(step_costs, batch["valid"])
+
+    # -- 18. checkpoint and resume --------------------------------------------------------
+    checkpoint_resume(trainer, batch, dev)
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # -- 19. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
     k1_pd_f32 = bf16_launches["bf16_pd_f32"][0]
     kernels = [{
@@ -912,7 +1239,7 @@ def main() -> int:
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_bwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:118",
         "launches": k2_train,
-        "launches_by_path": {"serve": k2_serve, "train": k2_train},
+        "launches_by_path": {"serve": k2_serve, "train": k2_train, "train_bf16": 0},
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,
@@ -924,13 +1251,26 @@ def main() -> int:
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
-        "launches": bf16_launches["bf16"][1],
-        "launches_by_path": {"serve_bf16": bf16_launches["bf16"][1]},
+        "launches": bf16_launches["bf16"][1] + k1b_train,
+        "launches_by_path": {"serve_bf16": bf16_launches["bf16"][1], "train_bf16": k1b_train},
         "max_abs_err": k1b_err,
         "ms": k1b_ms,
         "plain_ms": k1b_plain_ms,
         "bound_ms": k1b_bound,
         "bound_by": k1b_by,
+        "library_ms": None,
+    }, {
+        "name": "ms_deform_attn_bwd_bf16",
+        "route": "cuda",
+        "source": "bm2f_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+        "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:118",
+        "launches": k2b_train,
+        "launches_by_path": {"train_bf16": k2b_train},
+        "max_abs_err": k2b_err,
+        "ms": k2b_ms,
+        "plain_ms": k2b_plain_ms,
+        "bound_ms": k2b_bound,
+        "bound_by": k2b_by,
         "library_ms": None,
     }]
     # the probe's kernels, each at its row's shapes (S=2500, random addresses)

@@ -24,7 +24,8 @@
   The direct reading e(port_bf16, jax_bf16) is also held: readings ResNet
   1.0e-3, pixel decoder 6.5e-3, predictor and model 3-9e-2; limits 5e-3,
   2e-2, 0.15.
-- A bf16 `Predictor` request on the CPU, and `Trainer` refusing bf16.
+- A bf16 `Predictor` request on the CPU; gradients through a bf16 `value`
+  and `Trainer` in bf16 (held against JAX in tests/test_torch_train_bf16.py).
 """
 
 import numpy as np
@@ -50,7 +51,7 @@ from bm2f_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
 from bm2f_tpu_torch.models.resnet import ResNet
 from bm2f_tpu_torch.models.transformer_decoder import MultiScaleMaskedTransformerDecoder
 from bm2f_tpu_torch.ops import ms_deform_attn
-from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_plain
+from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda, ms_deform_attn_plain
 from bm2f_tpu_torch.predict import Predictor
 from bm2f_tpu_torch.train.trainer import Trainer
 from bm2f_tpu_torch.utils.convert_weights import jax_variables_to_state_dict
@@ -106,14 +107,22 @@ def test_k1_plain_on_bf16_value_matches_pallas(rng, case):
 
 
 def test_function_refuses_gradients_through_a_bf16_value(rng):
+    """Since bf16 training (K2 on a bf16 `value`), the Function gives the
+    gradients through a bf16 `value`: d_value in bf16, d_attn in f32 (the
+    closed-form plain backward on the CPU; tests/test_torch_train_bf16.py
+    holds them against JAX). What is still refused is cutting them: K1's
+    wrapper, called outside the Function with grad mode on, raises."""
     shapes = ((4, 4),)
-    value = torch.zeros(1, 16, 2, 32, dtype=torch.bfloat16, requires_grad=True)
-    loc = torch.full((1, 5, 2, 1, 4, 2), 0.5)
+    value = torch.from_numpy(rng.randn(1, 16, 2, 32).astype(np.float32)).to(torch.bfloat16)
+    value.requires_grad_(True)
+    loc = torch.full((1, 5, 2, 1, 4, 2), 0.4)
     attn = torch.full((1, 5, 2, 1, 4), 0.25, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        ms_deform_attn(value, shapes, loc, attn)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        ms_deform_attn(value.detach(), shapes, loc, attn)
+    out = ms_deform_attn(value, shapes, loc, attn)
+    d_value, d_attn = torch.autograd.grad(out.sum(), (value, attn))
+    assert d_value.dtype == torch.bfloat16 and d_attn.dtype == torch.float32
+    assert d_value.abs().sum() > 0 and d_attn.abs().sum() > 0
+    with pytest.raises(RuntimeError, match="cut the gradient"):
+        ms_deform_attn_cuda(value, shapes, loc, attn)
 
 
 def test_resnet14_bf16(rng):
@@ -291,5 +300,13 @@ def test_kept_cast_copy_follows_the_parameter():
 
 
 def test_trainer_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Trainer(get_config("coco_instance_r50", {**SMALL, **BF16}), device="cpu")
+    """Since bf16 training, `Trainer` takes model.dtype="bfloat16" (f32
+    parameters, the weights cast at every call so that gradients reach
+    them; tests/test_torch_train_bf16.py holds its step against JAX) and
+    refuses only a dtype the model does not compute in."""
+    trainer = Trainer(get_config("coco_instance_r50", {**SMALL, **BF16}), device="cpu")
+    assert trainer.model.backbone.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    with pytest.raises(ValueError, match="model.dtype 'float16'"):
+        Trainer(get_config("coco_instance_r50", {**SMALL, "model.dtype": "float16"}),
+                device="cpu")

@@ -1,9 +1,11 @@
 """The port on the card: its hand-written CUDA kernels against their plain
-PyTorch versions (K1 on f32 and bf16 values, K2, the probe's K3 and K4), the
+PyTorch versions (K1 on f32 and bf16 values, K2 on f32 and bf16 values and
+its alert under deterministic algorithms, the probe's K3 and K4), the
 full-width R50 Mask2Former on the card against the from-scratch torch
 reference forward of tests/torch_oracle.py (run on the CPU) on one
-detectron2-named state dict, and the full-width bf16 forward against the f32
-kernel path. Imports no JAX, so that it runs on a machine with a card and no
+detectron2-named state dict, the full-width bf16 forward against the f32
+kernel path, and the f32 entry points computing in f32 whatever the global
+TF32 flags say. Imports no JAX, so that it runs on a machine with a card and no
 JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -337,6 +339,132 @@ def test_ms_deform_attn_bwd_kernel_encoder_tiles_match_plain(case, far):
         torch.testing.assert_close(x, w, msg=name, **GRAD_TOL[name])
     assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
     torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-6 * a[0].abs().max().item())
+
+
+# K2 on a bf16 `value` against the plain bf16 backward: d_value is an f32 sum
+# rounded to bf16 once by both, the sums in another order, so an element may
+# round to the next bf16 (2^-8 of it) or move by the f32 noise of the largest
+# sum; d_loc and d_attn are f32 sums of f32 products of the same bf16 rows
+BF16_D_VALUE_RTOL, BF16_D_VALUE_ATOL_OF_MAX = 2.0 ** -7, 1e-5
+
+
+def _check_bf16_bwd(got, want, second):
+    """K2-bf16's (d_value, d_loc, d_attn) against the plain bf16 backward,
+    and a second run: d_loc and d_attn bitwise equal, d_value within a
+    tolerance scaled by its largest element."""
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == got[2].dtype == torch.float32
+    scale = want[0].float().abs().max().item()
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=BF16_D_VALUE_RTOL,
+                               atol=BF16_D_VALUE_ATOL_OF_MAX * scale)
+    for name, a, b in zip(("d_loc", "d_attn"), got[1:], want[1:]):
+        torch.testing.assert_close(a, b, msg=name, **GRAD_TOL[name])
+    assert torch.equal(got[1], second[1]) and torch.equal(got[2], second[2])
+    torch.testing.assert_close(got[0].float(), second[0].float(), rtol=BF16_D_VALUE_RTOL,
+                               atol=BF16_D_VALUE_ATOL_OF_MAX * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_ms_deform_attn_bwd_bf16_kernel_matches_plain(case):
+    """K2 on a bf16 `value`, reached through the autograd Function: one
+    K1-bf16 and one K2-bf16 launch, d_value in bf16, against the plain bf16
+    backward (which upcasts, computes in f32 and rounds d_value once)."""
+    dev = require_cuda()
+    shapes, value, loc, attn, g = _deform_inputs(case, dev)
+    value = value.to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (value, loc, attn)]
+    before = (ms_deform_attn_cuda.launches_bf16, ms_deform_attn_bwd_cuda.launches_bf16,
+              ms_deform_attn_bwd_cuda.launches)
+    out = ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (ms_deform_attn_cuda.launches_bf16, ms_deform_attn_bwd_cuda.launches_bf16,
+            ms_deform_attn_bwd_cuda.launches) == (before[0] + 1, before[1] + 1, before[2])
+    want = ms_deform_attn_bwd_plain(value, shapes, loc, attn, g)
+    _check_bf16_bwd(got, want, ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("far", [False, True], ids=["near", "far"])
+@pytest.mark.parametrize("case", ENCODER_CASES)
+def test_ms_deform_attn_bwd_bf16_kernel_encoder_tiles_match_plain(case, far):
+    """K2-bf16 on the encoder-like inputs (Q == S, encoder cells), the
+    model's L=3, P=4, D=32 instantiation and the generic one, twice."""
+    dev = require_cuda()
+    shapes, value, loc, attn, g = _encoder_inputs(case, dev, far, seed=1)
+    value = value.to(torch.bfloat16)
+    a = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+    b = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+    torch.cuda.synchronize()
+    _check_bf16_bwd(a, ms_deform_attn_bwd_plain(value, shapes, loc, attn, g), b)
+
+
+@pytest.mark.cuda
+def test_ms_deform_attn_bwd_kernel_alerts_under_deterministic_algorithms():
+    """K2 sums d_value with atomics: under torch.use_deterministic_algorithms
+    it raises, and with warn_only it warns and launches, as PyTorch's own
+    atomic CUDA ops do; the message names the repair."""
+    dev = require_cuda()
+    shapes, value, loc, attn, g = _deform_inputs(CASES[0], dev)
+    before = ms_deform_attn_bwd_cuda.launches
+    try:
+        torch.use_deterministic_algorithms(True)
+        with pytest.raises(RuntimeError, match="queue 2 item 2"):
+            ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+        assert ms_deform_attn_bwd_cuda.launches == before
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with pytest.warns(UserWarning, match="queue 2 item 2"):
+            ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+        assert ms_deform_attn_bwd_cuda.launches == before + 1
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+# coco_instance_r50 at full width with a depth-14 ResNet and 3 decoder layers
+SMALL_CARD = {"model.backbone.resnet.depth": 14, "model.decoder.dec_layers": 3,
+              "model.decoder.num_queries": 20}
+
+
+@pytest.fixture
+def global_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _set_tf32(on: bool):
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+
+
+@pytest.mark.cuda
+def test_f32_entry_points_compute_in_f32_whatever_the_global_flags(global_tf32):
+    """`Predictor.predict` and `Trainer.step` of an f32 model give the same
+    outputs with the global TF32 flags on as off: they scope their work in
+    f32. The forward is deterministic (bitwise); a step's gradient norm goes
+    through K2's atomics (rtol 1e-5), where TF32 would move it by ~1e-3."""
+    from bm2f_tpu_torch.predict import Predictor
+    from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
+
+    dev = require_cuda()
+    image = np.random.RandomState(5).randint(0, 256, (200, 264, 3)).astype(np.uint8)
+    batch = synthetic_batch(1, 256, 4, seed=6, device=dev)
+    res = {}
+    for on in (True, False):
+        _set_tf32(on)
+        pred = Predictor()
+        pred.setup("coco_instance_r50", device="cuda", seed=0, overrides=SMALL_CARD)
+        out = pred.predict(image)
+        trainer = Trainer(get_config("coco_instance_r50", SMALL_CARD), device=dev, seed=0)
+        metrics = {k: v.item() for k, v in trainer.step(batch).items()}
+        res[on] = (out, metrics)
+    (a, ma), (b, mb) = res[True], res[False]
+    np.testing.assert_array_equal(a["semantic"], b["semantic"])
+    np.testing.assert_array_equal(a["instances"]["scores"], b["instances"]["scores"])
+    for k in ma:
+        if k == "grad_norm":
+            np.testing.assert_allclose(ma[k], mb[k], rtol=1e-5, err_msg=k)
+        else:
+            assert ma[k] == mb[k], k
 
 
 @pytest.mark.cuda
