@@ -104,11 +104,14 @@ __device__ __forceinline__ void share_levels(Levels* s_lv, const Levels& lv,
 
 // Corner c is (dy, dx) = (c >> 1, c & 1) from the top-left one. A corner
 // outside the level has idx = -1 and w = 0 (zero padding). lx, ly are the
-// fractional position inside the 2x2 neighbourhood.
+// fractional position inside the 2x2 neighbourhood; (iy, ix) is the top-left
+// corner's pixel, clamped to [-1, H] x [-1, W] (inside [-1, H - 1] x
+// [-1, W - 1] whenever any corner is inside the level).
 struct Corners {
   int idx[4];
   float w[4];
   float lx, ly;
+  int ix, iy;
 };
 
 // The sample at normalized (u, v) of a level of H x W pixels whose first
@@ -130,6 +133,8 @@ __device__ __forceinline__ Corners bilinear_corners(float u, float v, int H,
   const bool vy1 = y0 >= -1.f && y0 <= (float)(H - 2);
   const int ix = (int)fminf(fmaxf(x0, -1.f), (float)W);
   const int iy = (int)fminf(fmaxf(y0, -1.f), (float)H);
+  c.ix = ix;
+  c.iy = iy;
   const float hx = 1.f - c.lx, hy = 1.f - c.ly;
   const bool ok[4] = {vy0 && vx0, vy0 && vx1, vy1 && vx0, vy1 && vx1};
   const float wt[4] = {hx * hy, c.lx * hy, hx * c.ly, c.lx * c.ly};

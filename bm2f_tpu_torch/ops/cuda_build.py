@@ -116,7 +116,7 @@ def build_variants(specs) -> Dict[object, ctypes.CDLL]:
     """specs: {label: source path}, sources outside `csrc/` (for instance a
     parent commit's, unpacked elsewhere) built into `_build/variants/`, all
     in parallel. Returns {label: loaded library}."""
-    jobs = {}
+    jobs, lib_of = {}, {}
     for label, src in specs.items():
         src = Path(src)
         h = hashlib.sha256(src.read_bytes())
@@ -124,8 +124,10 @@ def build_variants(specs) -> Dict[object, ctypes.CDLL]:
             h.update(header.name.encode() + header.read_bytes())
         h.update(" ".join(_flags(src)).encode())
         lib = BUILD_DIR / "variants" / f"{src.stem}-{h.hexdigest()[:16]}.so"
-        jobs[label] = (src, lib)
-    return {label: ctypes.CDLL(str(lib)) for label, (lib, _, _) in _compile(jobs).items()}
+        jobs.setdefault(lib, (src, lib))  # identical sources build once
+        lib_of[label] = lib
+    built = _compile(jobs)
+    return {label: ctypes.CDLL(str(built[lib][0])) for label, lib in lib_of.items()}
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import warnings
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -207,6 +206,165 @@ def tile_plan(spatial_shapes, Q: int, cells: bool) -> TilePlan:
     return TilePlan(tile_ptr.astype(np.int32), tile_q.astype(np.int32))
 
 
+# the plain mirror's sort: digits of RADIX_BITS bits a pass (any stable
+# sort gives the same order; K2's kernels take theirs from the library)
+RADIX_BITS = 8
+
+
+def pad_starts(spatial_shapes) -> Tuple[int, ...]:
+    """The first key of each level in K2's padded grid of top-left corners:
+    level l holds (H_l + 1)(W_l + 1) of them, (-1, -1) to (H_l - 1, W_l - 1)."""
+    starts = [0]
+    for h, w in spatial_shapes[:-1]:
+        starts.append(starts[-1] + (int(h) + 1) * (int(w) + 1))
+    return tuple(starts)
+
+
+def padded_size(spatial_shapes) -> int:
+    """S_pad: the keys of one (b, m) in K2's padded grid."""
+    return sum((int(h) + 1) * (int(w) + 1) for h, w in spatial_shapes)
+
+
+class DestinationPlan(NamedTuple):
+    """What K2's sample pass and sort leave for its reduce, for samples n =
+    ((b M + m) Q + q) K + k:
+      keys[n]  the padded top-left corner of sample n on its level,
+               pad_starts[l] + (y0 + 1)(W + 1) + (x0 + 1); S_pad when no
+               corner is inside the level;
+      wa[n, c] w_c a, the bilinear weight of corner c times the attention
+               weight; 0 for a corner outside the level;
+      order    the sample indices sorted stably by (b M + m, key): ascending
+               n within a key;
+      row_ptr  the samples of key j of (b, m) are order[row_ptr[i] :
+               row_ptr[i + 1]], i = (b M + m)(S_pad + 1) + j."""
+
+    keys: torch.Tensor
+    wa: torch.Tensor
+    order: torch.Tensor
+    row_ptr: torch.Tensor
+    S_pad: int
+
+
+def _sample_keys(spatial_shapes, loc, attn):
+    """keys (-1 where no corner is inside) and wa (see DestinationPlan) of
+    the samples of loc (..., L, P, 2) and attn (..., L, P), with K1's and
+    K2's arithmetic: (..., L, P) and (..., L, P, 4)."""
+    starts = pad_starts(spatial_shapes)
+    keys, was = [], []
+    for lid, (H, W) in enumerate(spatial_shapes):
+        a = attn[..., lid, :]
+        fx = loc[..., lid, :, 0] * W - 0.5
+        fy = loc[..., lid, :, 1] * H - 0.5
+        x0, y0 = torch.floor(fx), torch.floor(fy)
+        lx, ly = fx - x0, fy - y0
+        wa = []
+        for (yi, xi), w, _, _ in _corners(y0, x0, lx, ly):
+            inside = (yi >= 0) & (yi <= H - 1) & (xi >= 0) & (xi <= W - 1)
+            wa.append(torch.where(inside, w * a, torch.zeros_like(w)))
+        # any corner inside <=> the top-left corner in [-1, H-1] x [-1, W-1]
+        # (compared in float, so NaN and huge locations never reach an int)
+        any_in = (x0 >= -1) & (x0 <= W - 1) & (y0 >= -1) & (y0 <= H - 1)
+        xi = x0.clamp(-1, W).to(torch.int64)
+        yi = y0.clamp(-1, H).to(torch.int64)
+        key = starts[lid] + (yi + 1) * (W + 1) + xi + 1
+        keys.append(torch.where(any_in, key, torch.full_like(key, -1)))
+        was.append(torch.stack(wa, -1))
+    return torch.stack(keys, -2), torch.stack(was, -3)
+
+
+def radix_order_plain(keys: torch.Tensor, max_key: int) -> torch.Tensor:
+    """K2's sort with plain ops: the indices of `keys` (int, in [0, max_key])
+    sorted stably, by LSD passes over RADIX_BITS-bit digits, each a stable
+    counting sort (a digit's items keep their order)."""
+    order = torch.arange(keys.numel(), device=keys.device)
+    for shift in range(0, max(max_key.bit_length(), 1), RADIX_BITS):
+        digit = (keys[order] >> shift) & ((1 << RADIX_BITS) - 1)
+        order = torch.cat([order[digit == d] for d in range(1 << RADIX_BITS)])
+    return order
+
+
+def destination_plan(spatial_shapes, sampling_locations, attention_weights,
+                     tiles: TilePlan = None) -> DestinationPlan:
+    """K2's plan with plain ops: the sample pass, tile by tile as K2's blocks
+    take them (`tiles`, by default the wrapper's `tile_plan(..., cells=True)`),
+    each sample written at its own index, then the sort and the counts."""
+    B, Q, M, L, P, _ = sampling_locations.shape
+    K, dev, S_pad = L * P, sampling_locations.device, padded_size(spatial_shapes)
+    if tiles is None:
+        tiles = tile_plan(spatial_shapes, Q, cells=True)
+    keys = torch.empty((B, M, Q, K), dtype=torch.int64, device=dev)
+    wa = torch.empty((B, M, Q, K, 4), dtype=torch.float32, device=dev)
+    for t in range(len(tiles.tile_ptr) - 1):
+        qs = torch.from_numpy(tiles.tile_q[tiles.tile_ptr[t]:tiles.tile_ptr[t + 1]]).long()
+        qs = qs.to(dev)
+        k, w = _sample_keys(spatial_shapes, sampling_locations[:, qs],
+                            attention_weights[:, qs])  # (B, nq, M, L, P[, 4])
+        keys[:, :, qs] = k.reshape(B, len(qs), M, K).transpose(1, 2)
+        wa[:, :, qs] = w.reshape(B, len(qs), M, K, 4).transpose(1, 2)
+    keys = torch.where(keys < 0, S_pad, keys).reshape(-1)
+    bm = torch.arange(keys.numel(), device=dev) // (Q * K)
+    by_bm = bm * (S_pad + 1) + keys
+    n_keys = B * M * (S_pad + 1)
+    row_ptr = torch.nn.functional.pad(
+        torch.cumsum(torch.bincount(by_bm, minlength=n_keys), 0), (1, 0))
+    return DestinationPlan(keys, wa.reshape(-1, 4), radix_order_plain(by_bm, n_keys - 1),
+                           row_ptr, S_pad)
+
+
+def destination_entries(plan: DestinationPlan, spatial_shapes, B: int, M: int):
+    """Every destination row r = (b S + s) M + m with its entries in K2's
+    order: corner c = 0..3, then the samples of key (y - dy, x - dx) in
+    ascending n. Returns (rows, samples, corners, positions) of all entries,
+    position j being the entry's place in its row's sum, and the number of
+    entries of each row."""
+    S = sum(h * w for h, w in spatial_shapes)
+    dev = plan.row_ptr.device
+    r = torch.arange(B * S * M, device=dev)
+    m, s, b = r % M, (r // M) % S, r // (M * S)
+    starts = torch.tensor(level_start_index(spatial_shapes), device=dev)
+    l = torch.bucketize(s, starts, right=True) - 1
+    Ws = torch.tensor([w for _, w in spatial_shapes], device=dev)[l]
+    y, x = (s - starts[l]) // Ws, (s - starts[l]) % Ws
+    base = (b * M + m) * (plan.S_pad + 1) + torch.tensor(
+        pad_starts(spatial_shapes), device=dev)[l]
+    rows, samples, corners, positions = [], [], [], []
+    done = torch.zeros_like(r)  # entries of earlier corners
+    for c in range(4):
+        key = base + (y - (c >> 1) + 1) * (Ws + 1) + x - (c & 1) + 1
+        lo, cnt = plan.row_ptr[key], plan.row_ptr[key + 1] - plan.row_ptr[key]
+        row = torch.repeat_interleave(r, cnt)
+        j = torch.arange(int(cnt.sum()), device=dev) - torch.repeat_interleave(
+            torch.cumsum(cnt, 0) - cnt, cnt)
+        rows.append(row)
+        samples.append(plan.order[lo[row] + j])
+        corners.append(torch.full_like(row, c))
+        positions.append(done[row] + j)
+        done = done + cnt
+    return (torch.cat(rows), torch.cat(samples), torch.cat(corners),
+            torch.cat(positions)), done
+
+
+def d_value_by_destination(plan: DestinationPlan, spatial_shapes, grad_out, M: int,
+                           dtype=torch.float32) -> torch.Tensor:
+    """K2's d_value with plain ops, summed as its reduce sums: each row in
+    the order of `destination_entries`, in f32, adding (w_c a) * grad_out
+    row by row (a multiply and an add, each rounded), then cast to `dtype`
+    once. grad_out: (B, Q, M*D). Returns (B, S, M, D)."""
+    B, Q, MD = grad_out.shape
+    D, S = MD // M, sum(h * w for h, w in spatial_shapes)
+    K = plan.keys.numel() // (B * M * Q)
+    (rows, samples, corners, positions), _ = destination_entries(plan, spatial_shapes, B, M)
+    bm, q = samples // (Q * K), (samples // K) % Q
+    g_rows = ((bm // M) * Q + q) * M + bm % M
+    g = grad_out.reshape(-1, D).float()
+    acc = torch.zeros((B * S * M, D), dtype=torch.float32, device=grad_out.device)
+    for j in range(int(positions.max()) + 1 if positions.numel() else 0):
+        at = positions == j
+        acc[rows[at]] = acc[rows[at]] + plan.wa[samples[at], corners[at]][:, None] * g[
+            g_rows[at]]
+    return acc.reshape(B, S, M, D).to(dtype)
+
+
 @functools.lru_cache(maxsize=64)
 def _device_plan(spatial_shapes, Q: int, cells: bool, device):
     """`tile_plan` with its tables on `device`, built once per shape:
@@ -282,12 +440,10 @@ def ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
                  n_tensors=4)
     tile_ptr, tile_q, n_tiles = _device_plan(_shapes_key(spatial_shapes), Q, False,
                                              value.device)
-    rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
-            attention_weights.data_ptr(), out.data_ptr(), tile_ptr.data_ptr(),
-            tile_q.data_ptr(), _shapes_arg(spatial_shapes), B, S, M, D, Q, L, P, n_tiles,
-            torch.cuda.current_stream(value.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ms_deform_attn_fwd launch failed: CUDA error {rc}")
+    _check(fn(value.data_ptr(), sampling_locations.data_ptr(),
+              attention_weights.data_ptr(), out.data_ptr(), tile_ptr.data_ptr(),
+              tile_q.data_ptr(), _shapes_arg(spatial_shapes), B, S, M, D, Q, L, P, n_tiles,
+              _stream(value)), "ms_deform_attn_fwd")
     if bf16:
         ms_deform_attn_cuda.launches_bf16 += 1
     else:
@@ -299,57 +455,34 @@ ms_deform_attn_cuda.launches = 0
 ms_deform_attn_cuda.launches_bf16 = 0
 
 
-NONDETERMINISTIC = (
-    "ms_deform_attn_bwd_cuda (K2) sums d_value with atomic adds, so its last "
-    "bits change from run to run, but torch.use_deterministic_algorithms(True) "
-    "is set. A deterministic d_value is ROADMAP queue 2 item 2; until then "
-    "turn the setting off, or pass warn_only=True, to train on the card.")
-
-
-def _alert_nondeterministic() -> None:
-    """What PyTorch's atomic CUDA ops (`index_add_`) do under
-    `torch.use_deterministic_algorithms`: raise, or warn with warn_only."""
-    if torch.are_deterministic_algorithms_enabled():
-        if torch.is_deterministic_algorithms_warn_only_enabled():
-            warnings.warn(NONDETERMINISTIC, stacklevel=3)
-        else:
-            raise RuntimeError(NONDETERMINISTIC)
-
-
 def ms_deform_attn_bwd_cuda(value, spatial_shapes, sampling_locations,
                             attention_weights, grad_out):
     """Launch K2: (d_value, d_loc, d_attn) from contiguous CUDA tensors,
     `value` f32 or bf16 and the rest f32, grad_out (B, Q, M*D). d_value comes
     in `value`'s dtype (a bf16 one summed in f32 and rounded once), d_loc and
-    d_attn in f32. Raises as `ms_deform_attn_cuda` does, and under
-    `torch.use_deterministic_algorithms(True)` (warns with warn_only): d_value
-    is summed with atomics, so its last bits vary from run to run. f32
-    launches count in `.launches`, bf16 launches in `.launches_bf16`."""
-    _alert_nondeterministic()
-    B, S, M, D, Q, L, P = _cuda_dims(value, spatial_shapes, sampling_locations,
-                                     attention_weights, grad_out,
-                                     value_dtypes=(torch.float32, torch.bfloat16))
-    d_value = torch.zeros(value.shape, device=value.device, dtype=torch.float32)
-    d_loc = torch.empty_like(sampling_locations)
-    d_attn = torch.empty_like(attention_weights)
-    if d_attn.numel() == 0:
-        return d_value.to(value.dtype), d_loc, d_attn
-    bf16 = value.dtype == torch.bfloat16
-    fn = _kernel(_BWD_SOURCE, "ms_deform_attn_bwd_bf16" if bf16 else "ms_deform_attn_bwd",
-                 n_tensors=7)
-    tile_ptr, tile_q, n_tiles = _device_plan(_shapes_key(spatial_shapes), Q, True,
-                                             value.device)
-    rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
-            attention_weights.data_ptr(), grad_out.data_ptr(), d_value.data_ptr(),
-            d_loc.data_ptr(), d_attn.data_ptr(), tile_ptr.data_ptr(), tile_q.data_ptr(),
-            _shapes_arg(spatial_shapes), B, S, M, D, Q, L, P, n_tiles,
-            torch.cuda.current_stream(value.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ms_deform_attn_bwd launch failed: CUDA error {rc}")
-    if bf16:
+    d_attn in f32. Every output is the same bits on every run: d_value is
+    summed destination-major in a fixed order (`_bwd_sample`, a radix sort
+    of the samples by key, `_bwd_reduce`; `destination_plan` and
+    `d_value_by_destination` are the plain mirror). Raises as
+    `ms_deform_attn_cuda` does. f32 launches count in `.launches`, bf16
+    launches in `.launches_bf16`."""
+    dims = _cuda_dims(value, spatial_shapes, sampling_locations, attention_weights,
+                      grad_out, value_dtypes=(torch.float32, torch.bfloat16))
+    B, S, M, D, Q, L, P = dims
+    d_value = torch.empty(value.shape, device=value.device, dtype=value.dtype)
+    if B * Q * M * L * P == 0:
+        return (d_value.zero_(), torch.empty_like(sampling_locations),
+                torch.empty_like(attention_weights))
+    d_loc, d_attn, wa, keys = _bwd_sample(
+        value, spatial_shapes, sampling_locations, attention_weights, grad_out, dims)
+    S_pad = padded_size(spatial_shapes)
+    order, sorted_keys = _radix_order_cuda(keys, Q * L * P, B * M, S_pad)
+    row_ptr = _key_bounds(sorted_keys, Q * L * P, B * M, S_pad)
+    _bwd_reduce(row_ptr, order, wa, grad_out, d_value, spatial_shapes, dims)
+    if value.dtype == torch.bfloat16:
         ms_deform_attn_bwd_cuda.launches_bf16 += 1
-        return d_value.to(torch.bfloat16), d_loc, d_attn
-    ms_deform_attn_bwd_cuda.launches += 1
+    else:
+        ms_deform_attn_bwd_cuda.launches += 1
     return d_value, d_loc, d_attn
 
 
@@ -357,15 +490,101 @@ ms_deform_attn_bwd_cuda.launches = 0
 ms_deform_attn_bwd_cuda.launches_bf16 = 0
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _bwd_sample(value, spatial_shapes, loc, attn, grad_out, dims):
+    """K2's step 1: (d_loc, d_attn, wa, keys); wa (n, 4) and keys (n,) by
+    sample n = ((b M + m) Q + q) K + k."""
+    B, S, M, D, Q, L, P = dims
+    dev, n, S_pad = value.device, B * M * Q * L * P, padded_size(spatial_shapes)
+    if n >= 2 ** 31 or B * M * (S_pad + 1) >= 2 ** 31:
+        raise ValueError(f"{n} samples or {B * M} x {S_pad + 1} keys do not fit int32")
+    d_loc, d_attn = torch.empty_like(loc), torch.empty_like(attn)
+    wa = torch.empty((n, 4), device=dev, dtype=torch.float32)
+    keys = torch.empty(n, device=dev, dtype=torch.int32)
+    tile_ptr, tile_q, n_tiles = _device_plan(_shapes_key(spatial_shapes), Q, True, dev)
+    name = "ms_deform_attn_bwd_sample" + ("_bf16" if value.dtype == torch.bfloat16 else "")
+    _check(_kernel(_BWD_SOURCE, name, n_tensors=8)(
+        value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+        d_loc.data_ptr(), d_attn.data_ptr(), wa.data_ptr(), keys.data_ptr(),
+        tile_ptr.data_ptr(), tile_q.data_ptr(), _shapes_arg(spatial_shapes), *dims,
+        n_tiles, _stream(value)), name)
+    return d_loc, d_attn, wa, keys
+
+
+def _key_bounds(sorted_keys, seg_len: int, n_seg: int, S_pad: int):
+    """row_ptr (n_seg (S_pad + 1) + 1,) int32: where each key's samples
+    begin in the sorted order, segment by segment, with the total last."""
+    row_ptr = torch.empty(n_seg * (S_pad + 1) + 1, device=sorted_keys.device,
+                          dtype=torch.int32)
+    fn = _c_function(_BWD_SOURCE, "msda_key_bounds",
+                     [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    _check(fn(sorted_keys.data_ptr(), seg_len, n_seg, S_pad, row_ptr.data_ptr(),
+              _stream(sorted_keys)), "msda_key_bounds")
+    return row_ptr
+
+
+def _radix_order_cuda(keys, seg_len: int, n_seg: int, max_key: int):
+    """(order, sorted keys): the indices of `keys` (int32, n_seg segments of
+    seg_len, each in [0, max_key]) sorted stably within each segment, and
+    the keys in that order. LSD passes over the library's digits, each a
+    count kernel, the scan of the per-block counts and a scatter kernel."""
+    tile = _c_function(_BWD_SOURCE, "msda_sort_tile", [])()
+    bits = _c_function(_BWD_SOURCE, "msda_radix_bits", [])()
+    count = _c_function(_BWD_SOURCE, "msda_radix_count",
+                        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    scatter = _c_function(_BWD_SOURCE, "msda_radix_scatter",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+    stream = _stream(keys)
+    hist = torch.empty(n_seg * (1 << bits) * -(-seg_len // tile), device=keys.device,
+                       dtype=torch.int32)
+    bufs = [(torch.empty_like(keys), torch.empty_like(keys)) for _ in range(2)]
+    k_in, v_in = keys, None
+    for p, shift in enumerate(range(0, max(max_key.bit_length(), 1), bits)):
+        _check(count(k_in.data_ptr(), seg_len, n_seg, shift, hist.data_ptr(), stream),
+               "msda_radix_count")
+        scan = torch.cumsum(hist, 0, dtype=torch.int32)
+        k_out, v_out = bufs[p % 2]
+        _check(scatter(k_in.data_ptr(), None if v_in is None else v_in.data_ptr(),
+                       k_out.data_ptr(), v_out.data_ptr(), seg_len, n_seg, shift,
+                       hist.data_ptr(), scan.data_ptr(), stream), "msda_radix_scatter")
+        k_in, v_in = k_out, v_out
+    return v_in, k_in
+
+
+def _bwd_reduce(row_ptr, order, wa, grad_out, d_value, spatial_shapes, dims) -> None:
+    """K2's step 3: every row of d_value (f32 or bf16) written once."""
+    B, S, M, D, Q, L, P = dims
+    name = "ms_deform_attn_bwd_reduce" + ("_bf16" if d_value.dtype == torch.bfloat16 else "")
+    fn = _c_function(_BWD_SOURCE, name, [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int)]
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    _check(fn(row_ptr.data_ptr(), order.data_ptr(), wa.data_ptr(), grad_out.data_ptr(),
+              d_value.data_ptr(), _shapes_arg(spatial_shapes), *dims, _stream(d_value)), name)
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _c_function(source: str, name: str, argtypes):
+    """The C entry point `name` of `source`, returning an int (a CUDA
+    error code, 0 for none)."""
+    fn = getattr(cuda_build.load(source), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
 def _kernel(source: str, name: str, n_tensors: int):
     """The C entry point `name` of `source`: n_tensors device pointers, the
     two tile tables on the device, the host (H, W) table, B, S, M, D, Q, L,
     P, n_tiles and the stream."""
-    fn = getattr(cuda_build.load(source), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (n_tensors + 2) + [ctypes.POINTER(ctypes.c_int)] + [
-        ctypes.c_int] * 8 + [ctypes.c_void_p]
-    return fn
+    return _c_function(source, name, [ctypes.c_void_p] * (n_tensors + 2)
+                       + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
 
 
 class MSDeformAttnFunction(torch.autograd.Function):

@@ -31,7 +31,14 @@ from bm2f_tpu_torch.config import get_config, parse_override
 from bm2f_tpu_torch.tools.profile_request import perturb_deformable
 from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
 
-KERNELS = {"K1": "ms_deform_attn_fwd_kernel", "K2": "ms_deform_attn_bwd_kernel"}
+# each kernel's device functions, its call counted by the first: K2 is a
+# sample pass, a radix sort (two kernels a pass), the keys' bounds and a
+# reduce (the sort's scans of per-block counts are PyTorch's cumsum, not
+# counted here)
+KERNELS = {"K1": ("ms_deform_attn_fwd_kernel",),
+           "K2": ("ms_deform_attn_bwd_sample_kernel", "radix_count_kernel",
+                  "radix_scatter_kernel", "key_bounds_kernel",
+                  "ms_deform_attn_bwd_reduce_kernel")}
 UNPROFILED_STEPS = 5
 
 
@@ -82,10 +89,12 @@ def main(argv=None) -> int:
           f"{profiled_ms - step_ms:.2f} device_busy_ms={busy_ms:.2f} device_ops={n_ops} "
           f"busy_share_of_unprofiled_step={busy_ms / step_ms:.3f} "
           f"busy_share_of_profiled_step={busy_ms / profiled_ms:.3f}")
-    for tag, name in KERNELS.items():
-        ms = sum(e.self_device_time_total for e in dev_events if name in e.key) / 1e3
-        n = sum(e.count for e in dev_events if name in e.key)
-        print(f"{tag} {name} launches={n} device_ms={ms:.3f} "
+    for tag, names in KERNELS.items():
+        mine = [e for e in dev_events if any(name in e.key for name in names)]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        calls = sum(e.count for e in mine if names[0] in e.key)
+        print(f"{tag} {'+'.join(names)} launches={calls} device_functions="
+              f"{sum(e.count for e in mine)} device_ms={ms:.3f} "
               f"share_of_busy={ms / max(busy_ms, 1e-9):.4f}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     table_dev = events.table(sort_by="self_device_time_total", row_limit=40)

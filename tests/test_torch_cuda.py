@@ -1,6 +1,7 @@
 """The port on the card: its hand-written CUDA kernels against their plain
-PyTorch versions (K1 on f32 and bf16 values, K2 on f32 and bf16 values and
-its alert under deterministic algorithms, the probe's K3 and K4), the
+PyTorch versions (K1 on f32 and bf16 values, K2 on f32 and bf16 values, its
+d_value bitwise equal across runs, tile orders and to the plain mirror of its
+design, and under deterministic algorithms, the probe's K3 and K4), the
 full-width R50 Mask2Former on the card against the from-scratch torch
 reference forward of tests/torch_oracle.py (run on the CPU) on one
 detectron2-named state dict, the full-width bf16 forward against the f32
@@ -19,12 +20,16 @@ import torch
 
 from bm2f_tpu_torch.config import get_config
 from bm2f_tpu_torch.models import build_model
-from bm2f_tpu_torch.ops import ms_deform_attn
+from bm2f_tpu_torch.ops import deform_attn, ms_deform_attn
 from bm2f_tpu_torch.ops.deform_attn import (
+    TilePlan,
+    d_value_by_destination,
+    destination_plan,
     ms_deform_attn_bwd_cuda,
     ms_deform_attn_bwd_plain,
     ms_deform_attn_cuda,
     ms_deform_attn_plain,
+    tile_plan,
 )
 from bm2f_tpu_torch.ops.gather_probe import (
     row_gather_sum_cuda,
@@ -251,16 +256,15 @@ def test_ms_deform_attn_bwd_kernel_matches_plain(case):
 @pytest.mark.cuda
 def test_ms_deform_attn_bwd_kernel_repeats():
     """Run twice on the same inputs: d_loc and d_attn are written once per
-    sample and come out bitwise equal; d_value is summed with atomics in
-    another order each run, so it agrees only to f32 rounding of its sums
-    (rtol 1e-5, atol 1e-6 of its largest element, as chip_smoke.py)."""
+    sample, and d_value is summed destination-major in a fixed order, so
+    all three come out bitwise equal."""
     dev = require_cuda()
     shapes, value, loc, attn, g = _deform_inputs(CASES[2], dev, seed=1)
     a = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
     b = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
     torch.cuda.synchronize()
-    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
-    torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-6 * a[0].abs().max().item())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 # encoder-like calls (Q == S: the queries are the levels' pixels): (B, M, D,
@@ -324,9 +328,8 @@ def test_ms_deform_attn_kernel_encoder_tiles_match_plain(case, dtype, far):
 def test_ms_deform_attn_bwd_kernel_encoder_tiles_match_plain(case, far):
     """K2 on the encoder-like inputs of the K1 test (Q == S: blocks take
     encoder cells of neighbouring queries). One launch per call;
-    GRAD_TOL against the closed-form plain backward; d_loc and d_attn
-    bitwise equal across two runs, d_value to the atomics' rounding (as
-    test_ms_deform_attn_bwd_kernel_repeats)."""
+    GRAD_TOL against the closed-form plain backward; all three gradients
+    bitwise equal across two runs."""
     dev = require_cuda()
     shapes, value, loc, attn, g = _encoder_inputs(case, dev, far, seed=1)
     before = ms_deform_attn_bwd_cuda.launches
@@ -337,8 +340,8 @@ def test_ms_deform_attn_bwd_kernel_encoder_tiles_match_plain(case, far):
     want = ms_deform_attn_bwd_plain(value, shapes, loc, attn, g)
     for name, x, w in zip(GRAD_TOL, a, want):
         torch.testing.assert_close(x, w, msg=name, **GRAD_TOL[name])
-    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
-    torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-6 * a[0].abs().max().item())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 # K2 on a bf16 `value` against the plain bf16 backward: d_value is an f32 sum
@@ -350,17 +353,15 @@ BF16_D_VALUE_RTOL, BF16_D_VALUE_ATOL_OF_MAX = 2.0 ** -7, 1e-5
 
 def _check_bf16_bwd(got, want, second):
     """K2-bf16's (d_value, d_loc, d_attn) against the plain bf16 backward,
-    and a second run: d_loc and d_attn bitwise equal, d_value within a
-    tolerance scaled by its largest element."""
+    and a second run: all three bitwise equal."""
     assert got[0].dtype == torch.bfloat16 and got[1].dtype == got[2].dtype == torch.float32
     scale = want[0].float().abs().max().item()
     torch.testing.assert_close(got[0].float(), want[0].float(), rtol=BF16_D_VALUE_RTOL,
                                atol=BF16_D_VALUE_ATOL_OF_MAX * scale)
     for name, a, b in zip(("d_loc", "d_attn"), got[1:], want[1:]):
         torch.testing.assert_close(a, b, msg=name, **GRAD_TOL[name])
-    assert torch.equal(got[1], second[1]) and torch.equal(got[2], second[2])
-    torch.testing.assert_close(got[0].float(), second[0].float(), rtol=BF16_D_VALUE_RTOL,
-                               atol=BF16_D_VALUE_ATOL_OF_MAX * scale)
+    for a, b in zip(got, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -401,28 +402,118 @@ def test_ms_deform_attn_bwd_bf16_kernel_encoder_tiles_match_plain(case, far):
 
 @pytest.mark.cuda
 def test_ms_deform_attn_bwd_kernel_alerts_under_deterministic_algorithms():
-    """K2 sums d_value with atomics: under torch.use_deterministic_algorithms
-    it raises, and with warn_only it warns and launches, as PyTorch's own
-    atomic CUDA ops do; the message names the repair."""
+    """K2 uses no float atomics, so under torch.use_deterministic_algorithms
+    it raises nothing and warns nothing (warnings are errors here),
+    launches, and repeats bitwise, on an f32 and a bf16 `value`."""
+    import warnings
+
     dev = require_cuda()
     shapes, value, loc, attn, g = _deform_inputs(CASES[0], dev)
-    before = ms_deform_attn_bwd_cuda.launches
+    before = (ms_deform_attn_bwd_cuda.launches, ms_deform_attn_bwd_cuda.launches_bf16)
     try:
         torch.use_deterministic_algorithms(True)
-        with pytest.raises(RuntimeError, match="queue 2 item 2"):
-            ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
-        assert ms_deform_attn_bwd_cuda.launches == before
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        with pytest.warns(UserWarning, match="queue 2 item 2"):
-            ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
-        assert ms_deform_attn_bwd_cuda.launches == before + 1
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            for v in (value, value.to(torch.bfloat16)):
+                a = ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g)
+                b = ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g)
+                torch.cuda.synchronize()
+                for x, y in zip(a, b):
+                    assert torch.equal(x, y)
     finally:
         torch.use_deterministic_algorithms(False)
+    assert (ms_deform_attn_bwd_cuda.launches, ms_deform_attn_bwd_cuda.launches_bf16) == (
+        before[0] + 2, before[1] + 2)
+
+
+def _reversed_tables(shapes, Q, dev, seed=3):
+    """K2's tile tables with the tiles in reverse order and the queries of
+    each tile shuffled, as `_device_plan` returns them."""
+    plan = tile_plan(shapes, Q, cells=True)
+    rng = np.random.RandomState(seed)
+    ptr = plan.tile_ptr
+    tiles = [rng.permutation(plan.tile_q[ptr[t]:ptr[t + 1]]) for t in range(len(ptr) - 1)]
+    tiles = tiles[::-1]
+    new = TilePlan(np.concatenate([[0], np.cumsum([len(t) for t in tiles])]).astype(np.int32),
+                   np.concatenate(tiles).astype(np.int32))
+    return (*(torch.from_numpy(a).to(dev) for a in new), len(tiles))
+
+
+# the encoder cases near and far, and two with Q != S (runs of queries)
+MIRROR_CASES = [(c, far) for c in ENCODER_CASES for far in (False, True)] + [
+    (CASES[1], None), (CASES[2], None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,far", MIRROR_CASES)
+def test_ms_deform_attn_bwd_kernel_equals_plain_mirror_and_ignores_tile_order(case, far, dtype):
+    """K2's d_value bitwise equal to the plain mirror of its design
+    (`destination_plan`, `d_value_by_destination`: the same products and
+    sums in the same order, a multiply and an add each rounded), and all
+    three gradients bitwise equal when its tiles come in reverse order with
+    the queries of each shuffled."""
+    dev = require_cuda()
+    if far is None:
+        shapes, value, loc, attn, g = _deform_inputs(case, dev, seed=4)
+    else:
+        shapes, value, loc, attn, g = _encoder_inputs(case, dev, far, seed=1)
+    value = value.to(dtype)
+    got = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+    tables = _reversed_tables(shapes, loc.shape[1], dev)
+    orig = deform_attn._device_plan
+    deform_attn._device_plan = lambda *args: tables
+    try:
+        rev = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+    finally:
+        deform_attn._device_plan = orig
+    torch.cuda.synchronize()
+    for x, y in zip(got, rev):
+        assert torch.equal(x, y)
+    mirror = d_value_by_destination(destination_plan(shapes, loc, attn), shapes, g,
+                                    value.shape[2], dtype)
+    assert got[0].dtype == mirror.dtype == dtype
+    assert torch.equal(got[0], mirror), (got[0].float() - mirror.float()).abs().max().item()
 
 
 # coco_instance_r50 at full width with a depth-14 ResNet and 3 decoder layers
 SMALL_CARD = {"model.backbone.resnet.depth": 14, "model.decoder.dec_layers": 3,
               "model.decoder.num_queries": 20}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_is_bitwise_repeatable_under_deterministic_algorithms(dtype):
+    """A whole train step (SMALL_CARD at 512x512, K1 and K2 on every encoder
+    layer) under torch.use_deterministic_algorithms(True): PyTorch alerts
+    about no operation (warnings are errors here), and two trainers from one
+    seed end the step with the same bits in every parameter and buffer."""
+    import warnings
+
+    from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
+
+    dev = require_cuda()
+    over = {} if dtype == "float32" else {"model.dtype": "bfloat16",
+                                          "model.pixel_decoder_f32": False}
+    states = []
+    launches = ms_deform_attn_bwd_cuda.launches + ms_deform_attn_bwd_cuda.launches_bf16
+    try:
+        torch.use_deterministic_algorithms(True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            for _ in range(2):
+                trainer = Trainer(get_config("coco_instance_r50", {**SMALL_CARD, **over}),
+                                  device=dev, seed=0)
+                trainer.step(synthetic_batch(2, 512, 4, seed=0, device=dev))
+                torch.cuda.synchronize()
+                states.append({k: v.detach().clone()
+                               for k, v in trainer.model.state_dict().items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert (ms_deform_attn_bwd_cuda.launches + ms_deform_attn_bwd_cuda.launches_bf16
+            - launches) == 2 * 6  # 6 encoder layers a step
+    differing = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+    assert not differing, differing[:8]
 
 
 @pytest.fixture

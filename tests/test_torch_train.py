@@ -202,27 +202,80 @@ def test_small_step_gradients_match_jax(small_step):
     assert checked == 4  # weight and bias of both encoder layers
 
 
-def test_small_step_parameters_match_jax(small_step, jax_small):
-    """The update (new minus old) against JAX's at rtol 1e-3 beyond two f32
-    ulps of the parameter, wherever JAX's gradient is at least 1e-3 of its
-    tensor's largest: Adam's first step is about lr * mult * sign(g), so a
-    near-zero gradient may flip its sign. A wrong LR multiplier or a wrong
-    decay moves the update by far more. Every element also within atol = lr."""
+# AdamW's first update, u = lr mult (g/(|g| + eps) + wd p) on the clipped
+# gradient g (clip 0.01 against a norm of ~164 here: |g| from ~1e-10 to
+# ~1e-3, eps 1e-8). Its error, element by element, propagated from:
+# - the gradient, held above to 1e-3 of its tensor's norm (and the norm it is
+#   clipped by to rtol 1e-3): |dg| <= tau = 1e-3 (|g|_tensor + |g|), and
+#   du/dg = lr mult eps / (|g| + eps)^2, capped at the 2 lr mult a sign flip
+#   can move it;
+# - JAX's Adam constants in f32: 1 - b2 (b2 = 0.999) is 1.29e-5 off in f32,
+#   3.6e-7 for b1, which moves g/(|g| + eps) by ~6.5e-6 of itself
+#   (ADAM_F32_REL; read 6.9e-6 on a CPU wherever |g| >> eps);
+# - and the rounding of the new parameter in each framework, an ulp each.
+ADAM_EPS, ADAM_F32_REL, GRAD_REL = 1e-8, 1e-5, 1e-3
+
+
+def _update_bound(g, lr_eff, ulp):
+    """The largest |update_port - update_jax| the error model allows, per
+    element; g the clipped gradient (f64)."""
+    ag = np.abs(g)
+    tau = GRAD_REL * (np.linalg.norm(g) + ag)
+    return lr_eff * (ADAM_F32_REL * ag / (ag + ADAM_EPS)
+                     + np.minimum(ADAM_EPS * tau / (ag + ADAM_EPS) ** 2, 2.0)) + 2 * ulp
+
+
+def _update_excess(small_step, jax_small, perturb=None):
+    """max |d_port - d_jax| / bound of every parameter tensor, where d is the
+    update (new minus old); `perturb(d_port, old, group)` stands in for a
+    wrong optimizer."""
     ref, _, trainer = small_step
     old = _port_keys(jax_small[2]["params"])
-    lr = trainer.optimizer.schedule(0)
-    kept = total = 0
+    opt = trainer.optimizer
+    lr = opt.schedule(0)
+    norm = ref["grad_norm"]
+    clip = opt.cfg.clip_gradients / norm if norm >= opt.cfg.clip_gradients else 1.0
+    groups = {g.name: g for g in opt.groups}
+    excess = {}
     for name, p in trainer.model.named_parameters():
-        new, want, g = p.detach().numpy(), ref["params"][name], ref["grads"][name]
-        np.testing.assert_allclose(new, want, rtol=0, atol=lr, err_msg=name)
-        if not np.abs(g).max() > 0:
-            continue
-        keep = np.abs(g) >= 1e-3 * np.abs(g).max()
+        new, want = p.detach().numpy(), ref["params"][name]
         ulp = np.spacing(np.maximum(np.abs(old[name]), np.abs(want))).astype(np.float64)
         d_port = new.astype(np.float64) - old[name]
         d_jax = want.astype(np.float64) - old[name]
-        np.testing.assert_array_less(
-            np.abs(d_port - d_jax)[keep], (1e-3 * np.abs(d_jax) + 2 * ulp)[keep],
-            err_msg=name)
-        kept, total = kept + keep.sum(), total + keep.size
-    assert kept > 0.3 * total
+        if perturb is not None:
+            d_port = perturb(d_port, old[name].astype(np.float64), groups[name])
+        bound = _update_bound(ref["grads"][name].astype(np.float64) * clip,
+                              lr * groups[name].lr_mult, ulp)
+        excess[name] = float((np.abs(d_port - d_jax) / bound).max())
+    return excess
+
+
+def test_small_step_parameters_match_jax(small_step, jax_small):
+    """Every element of the update (new minus old) within the error model's
+    bound of JAX's (`_update_bound`), and within atol = lr."""
+    ref, _, trainer = small_step
+    lr = trainer.optimizer.schedule(0)
+    for name, p in trainer.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref["params"][name], rtol=0,
+                                   atol=lr, err_msg=name)
+    excess = _update_excess(small_step, jax_small)
+    worst = max(excess, key=excess.get)
+    assert excess[worst] <= 1.0, (worst, excess[worst])
+
+
+def test_small_step_update_bound_catches_a_wrong_lr_or_decay(small_step, jax_small):
+    """The bound refuses an update whose learning rate (or LR multiplier) is
+    1 % off, in every tensor, and one whose weight decay is half what it
+    should be (or applied where it should not be), in every tensor whose
+    parameter is not zero."""
+    wd = small_step[2].optimizer.cfg.weight_decay
+    wrong_lr = _update_excess(small_step, jax_small, lambda d, old, grp: d * 1.01)
+    assert min(wrong_lr.values()) > 1.0, min(wrong_lr, key=wrong_lr.get)
+    ref, _, trainer = small_step
+    lr = trainer.optimizer.schedule(0)
+    wrong_wd = _update_excess(
+        small_step, jax_small,
+        lambda d, old, grp: d + lr * grp.lr_mult * (0.5 * wd if grp.decay else -wd) * old)
+    nonzero = {k for k, v in _port_keys(jax_small[2]["params"]).items() if np.any(v != 0)}
+    assert nonzero and all(wrong_wd[k] > 1.0 for k in nonzero), [
+        k for k in nonzero if wrong_wd[k] <= 1.0][:5]
