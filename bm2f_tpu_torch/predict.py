@@ -26,22 +26,20 @@ class Predictor:
     def setup(self, config: str = "coco_instance_r50", weights: str = "",
               device="cuda", seed: int = 0,
               overrides: Optional[Mapping[str, Any]] = None) -> None:
-        """No weights: seeded random init. `.pkl`/`.pth`: a detectron2
-        checkpoint. `overrides` set config fields, for example the bench's
+        """No weights: seeded random init. Otherwise `weights` is a path
+        that `utils.convert_weights.load_weights` takes: a detectron2
+        `.pkl`/`.pth`, a checkpoint directory of the port, or an orbax
+        directory of the JAX package. `overrides` set config fields, for example the bench's
         bf16 serving: {"model.dtype": "bfloat16", "model.pixel_decoder_f32":
         False} (the same f32 weights serve either dtype). Once loaded, the
         weights are cast to the dtype each part computes in."""
         self.cfg = get_config(config, overrides)
         self.device = torch.device(device)
         self.model = build_model(self.cfg, device=self.device, seed=seed)
-        if weights.endswith((".pkl", ".pth")):
-            from bm2f_tpu_torch.utils.convert_weights import load_d2_state_dict
+        if weights:
+            from bm2f_tpu_torch.utils.convert_weights import load_weights
 
-            self.model.load_state_dict(load_d2_state_dict(weights), strict=True)
-        elif weights:
-            raise NotImplementedError(
-                f"{weights!r}: loading JAX (orbax) checkpoints is ROADMAP "
-                "queue 1 item 9")
+            self.model.load_state_dict(load_weights(weights, self.cfg), strict=True)
         self.model.cast_weights_for_inference_()
 
     @torch.no_grad()

@@ -3,7 +3,9 @@ package's orbax `Checkpointer` (bm2f_tpu/train/checkpoint.py:16-70, itself
 detectron2's `resume_or_load`, reference train_net.py:310-321), in
 PyTorch's own format: one directory per step, `<directory>/<step>/state.pt`
 (`torch.save` of `Trainer.state_dict()`), the newest `max_to_keep` kept.
-Reading the JAX package's orbax checkpoints is ROADMAP queue 1 item 9.
+A directory of weights only (`save_state` of {"step", "model"}, as
+`tools/convert_orbax.py` writes from a JAX checkpoint) is read by
+`model_state` for evaluation and serving, and cannot be resumed.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import os
 import shutil
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -39,13 +41,18 @@ class Checkpointer:
         `max_to_keep` steps. A step already on disk is kept as it is, unless
         `force`, which replaces it (the end of a run saves with force).
         Returns whether it wrote."""
+        return self.save_state(step, trainer.state_dict(), force)
+
+    def save_state(self, step: int, state: Dict[str, object], force: bool = False) -> bool:
+        """`save` of a state dict: a trainer's, or {"step", "model"} for
+        weights only."""
         final = self.directory / str(step)
         if final.exists() and not force:
             return False
         tmp = self.directory / f".{step}.{os.getpid()}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
-        torch.save(trainer.state_dict(), tmp / STATE_FILE)
+        torch.save(state, tmp / STATE_FILE)
         if final.exists():
             shutil.rmtree(final)
         tmp.rename(final)
@@ -65,6 +72,16 @@ class Checkpointer:
         state["generator"] = state["generator"].cpu()
         trainer.load_state_dict(state)
         return step
+
+    def model_state(self, step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The model's `state_dict` saved as `step` (the latest when None),
+        on the CPU."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        state = torch.load(self.directory / str(step) / STATE_FILE,
+                           map_location="cpu", weights_only=True)
+        return state["model"]
 
     def resume_or_load(self, trainer, resume: bool = True) -> Optional[int]:
         """Reference semantics: when `resume` and a checkpoint exists,

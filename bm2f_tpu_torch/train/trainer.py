@@ -15,7 +15,9 @@ it for the gathered rows its formulation keeps).
 in bf16 (K1 and K2 on a bf16 `value` when the pixel decoder does too), its
 parameters and the AdamW moments stay f32, as in the JAX `TrainState`, and
 there is no loss scaling, as there is none in JAX. An f32 model computes in
-f32 (`utils.precision.f32_scope`: no TF32), whatever the global flags say.
+f32 (`utils.precision.f32_scope`: no TF32), and every step is deterministic
+(`utils.precision.deterministic_scope`: two trainers from one seed end a
+step with the same bits), whatever the global flags say.
 `state_dict()` holds what the JAX `TrainState` holds, for
 `train.checkpoint.Checkpointer`.
 """
@@ -34,7 +36,7 @@ from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, draw_points, set
 from bm2f_tpu_torch.matching.hungarian import make_assign_fn
 from bm2f_tpu_torch.models.maskformer import build_model, normalize_images
 from bm2f_tpu_torch.train.optim import AdamW
-from bm2f_tpu_torch.utils.precision import f32_scope
+from bm2f_tpu_torch.utils.precision import deterministic_scope, f32_scope
 
 log = logging.getLogger(__name__)
 
@@ -172,8 +174,10 @@ class Trainer:
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         """One optimizer step. Returns every loss, total_loss and grad_norm
         as 0-d device tensors. `mark(stage)`, when given, is called after
-        forward, matcher_costs, assign, losses, backward and optimizer."""
-        with f32_scope(self.cfg.model.dtype):
+        forward, matcher_costs, assign, losses, backward and optimizer.
+        Deterministic and, for an f32 model, in f32, whatever the global
+        flags say."""
+        with f32_scope(self.cfg.model.dtype), deterministic_scope():
             self.optimizer.zero_grad()
             total, losses = self.loss(batch, points, mark=mark)
             total.backward()

@@ -10,6 +10,8 @@
   HWIO -> OIHW, (in, out) -> (out, in), packed in_proj (C, 3C) -> (3C, C),
   scan-stacked layers unstacked, and 0-indexed `adapter_{i}`/`layer_{i}` to
   detectron2's `adapter_{i+1}`/`layer_{i+1}`.
+- `load_weights`: any of those on disk, or a checkpoint directory of the
+  port, by what the path holds.
 """
 
 from __future__ import annotations
@@ -193,3 +195,27 @@ def jax_variables_to_state_dict(variables: Mapping, cfg) -> Dict[str, torch.Tens
             raise ValueError(f"{k}: JAX gives {tuple(out[k].shape)}, port wants {shape}")
     return {k: torch.tensor(np.asarray(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def load_weights(path: str, cfg) -> Dict[str, torch.Tensor]:
+    """The port `state_dict` held by `path`: a detectron2 `.pkl` / `.pth`; a
+    checkpoint directory of the port (`train/checkpoint.py`: a trainer's, or
+    weights only); or an orbax directory of the JAX package's
+    `Checkpointer`, holding a TrainState or bare variables (read with
+    tensorstore, `utils/orbax.py`). Anything else raises."""
+    from pathlib import Path
+
+    if path.endswith((".pkl", ".pth")):
+        return load_d2_state_dict(path)
+    d = Path(path)
+    if d.is_dir():
+        from bm2f_tpu_torch.train.checkpoint import Checkpointer
+        from bm2f_tpu_torch.utils.orbax import orbax_steps, read_orbax_variables
+
+        ckpt = Checkpointer(d)
+        if ckpt.latest_step() is not None:
+            return ckpt.model_state()
+        if orbax_steps(d):
+            return jax_variables_to_state_dict(read_orbax_variables(d), cfg)
+    raise ValueError(f"{path!r} holds no weights: expected a detectron2 .pkl/.pth, "
+                     "a checkpoint directory of the port or an orbax directory")

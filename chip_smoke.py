@@ -72,7 +72,29 @@ Phases, each printing its own line:
      resumed from it (`Checkpointer.resume_or_load`), its whole state
      bitwise equal; one more step from each, the losses equal and the
      gradient norms within the tolerance of cuDNN's backward;
- 19. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
+ 19. the eval's data: a seeded synthetic dataset in the COCO formats at COCO
+     val2017 sizes (`bm2f_tpu_torch.data.synthetic`: instances with RLE
+     masks and crowd regions, panoptic PNGs, semantic PNGs with 255
+     ignored), written to a temporary directory and registered as the
+     builtin COCO and ADE20K splits;
+ 20. the eval path: `bm2f_tpu_torch.eval.run_eval` on `coco_instance_r50` at
+     full width with seeded random weights, the test resize 800 / 1333 and
+     its buckets (672, 992, 1344; the images fall in 992 and 1344): mask AP
+     (`coco`), mIoU (`sem_seg`) and PQ (`coco_panoptic_seg`) in f32, and AP
+     in bf16, every count set to 0 just before each run and read just after
+     (K1 6 launches an image, K1-f32 none in bf16); the metrics, warm images
+     per second and the first image of each bucket apart, peak memory;
+ 21. each evaluator fed the ground truth as its predictions: AP = mIoU =
+     PQ = 100 exactly;
+ 22. K1 and K1-bf16 at the eval buckets 992 and 1344 (B=1), on the first
+     encoder layer's inputs of one synthetic image of each, against the
+     plain version and timed beside it and the bound;
+ 23. weights: the f32 eval model saved with the port's `Checkpointer`,
+     loaded through `Predictor.setup(weights=...)` (what `--weights`
+     calls) with the same predictions bitwise, and through the entry point
+     `python -m bm2f_tpu_torch.eval --weights` with the same metrics; where
+     tensorstore is missing, the orbax reader's named ImportError;
+ 24. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
 
 Any failure raises and the script exits non-zero. It imports nothing of JAX
@@ -157,6 +179,11 @@ BF16_TRAIN_LOSS_REL, BF16_TRAIN_GRAD_REL = 2e-3, 0.15
 # through cuDNN's backward, whose sums may run in another order each time.
 # Read on an H100: losses equal, gradient norm 6.4e-6 (with K2's atomics)
 RESUME_LOSS_RTOL, RESUME_GRAD_NORM_RTOL = 1e-6, 1e-4
+# (run, dataset the synthetic root registers, config overrides)
+EVAL_RUNS = (("coco", "coco_2017_val", {}), ("sem_seg", "ade20k_sem_seg_val", {}),
+             ("coco_panoptic_seg", "coco_2017_val_panoptic", {}),
+             ("coco_bf16", "coco_2017_val", BF16))
+EVAL_BUCKETS = {992: 4, 1344: 0}  # bucket: index of an image of that bucket
 # the probe: level sizes of every impl; CUDA-event launches
 PROBE_LEVELS, PROBE_ITERS = (625, 2500, 10000), 20
 # the probe's row of each kernel in the kernels line
@@ -1061,6 +1088,229 @@ def checkpoint_resume(trainer, batch, dev):
                              f"{RESUME_GRAD_NORM_RTOL})")
 
 
+def write_eval_dataset(out_dir: Path):
+    """Phase 19: the synthetic dataset under a new directory of `out_dir`,
+    registered. Returns (its root, {dataset: evaluator type})."""
+    from bm2f_tpu_torch.data.datasets import register_all_builtin_datasets
+    from bm2f_tpu_torch.data.synthetic import COCO_SIZES, write_synthetic_coco
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_", dir=out_dir)
+    t0 = time.perf_counter()
+    names = write_synthetic_coco(root, seed=0)
+    register_all_builtin_datasets(root, force=True)
+    log("eval_data", root=root, datasets=",".join(f"{k}:{v}" for k, v in names.items()),
+        sizes=" ".join(f"{h}x{w}" for h, w in COCO_SIZES),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    return root, names
+
+
+def eval_path():
+    """Phase 20: `run_eval` in each of EVAL_RUNS. Returns ({run: K1 launches
+    (f32, bf16)}, {run: metrics}, {dtype: Predictor})."""
+    from bm2f_tpu_torch import eval as port_eval
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+    from bm2f_tpu_torch.predict import Predictor
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+
+    preds, launches, metrics = {}, {}, {}
+    for run, dataset, over in EVAL_RUNS:
+        dtype = "bf16" if over else "f32"
+        if dtype not in preds:
+            preds[dtype] = Predictor()
+            preds[dtype].setup(CONFIG, device="cuda", seed=0, overrides=over)
+            perturb_deformable(preds[dtype].model)  # the weights of phase 5
+        pred = preds[dtype]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        timings = []
+        t0 = time.perf_counter()
+        res = port_eval.run_eval(pred.cfg, pred.model, dataset, timings=timings)
+        wall = time.perf_counter() - t0
+        n = len(timings)
+        launches[run] = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)
+        want = (0, 6 * n) if over else (6 * n, 0)
+        n_images = len(DatasetCatalog.get(dataset))
+        if n != n_images or launches[run] != want:
+            raise AssertionError(f"eval {run}: {n} images, K1 f32, bf16 launches "
+                                 f"{launches[run]}, expected {n_images} and {want}")
+        bad = {k: v for k, v in res.items() if not 0.0 <= float(v) <= 100.0}
+        if bad:
+            raise AssertionError(f"eval {run}: metrics out of [0, 100]: {bad}")
+        metrics[run] = res
+        by_bucket = {}
+        for t in timings:
+            by_bucket.setdefault(t["bucket"], []).append(t["ms"])
+        warm = [ms for v in by_bucket.values() for ms in v[1:]]
+        log("eval", run=run, dataset=dataset, images=n,
+            metrics=" ".join(f"{k}={float(v):.4f}" for k, v in res.items()),
+            warm_images_per_s=f"{1e3 * len(warm) / sum(warm):.3f}",
+            **{f"b{b}_first_ms": f"{v[0]:.2f}" for b, v in sorted(by_bucket.items())},
+            **{f"b{b}_warm_ms": "/".join(f"{ms:.2f}" for ms in v[1:])
+               for b, v in sorted(by_bucket.items())},
+            k1_launches_per_image=f"{sum(launches[run]) / n:.1f}",
+            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            wall_s=f"{wall:.2f}")
+    return launches, metrics, preds
+
+
+def gt_oracle():
+    """Phase 21: each evaluator fed the ground truth as predictions (crowd
+    regions left out of the instance predictions: they are ignored)."""
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from bm2f_tpu_torch.data.mask_ops import segmentation_to_mask
+    from bm2f_tpu_torch.data.panoptic_io import read_panoptic_png
+    from bm2f_tpu_torch.eval import load_sem_gt
+    from bm2f_tpu_torch.evaluation import (
+        COCOMaskAPEvaluator,
+        PanopticEvaluator,
+        SemSegEvaluator,
+    )
+
+    K = get_config(CONFIG).model.num_classes
+    coco = COCOMaskAPEvaluator(K)
+    for dd in DatasetCatalog.get("coco_2017_val"):
+        anns = dd["annotations"]
+        masks = np.stack([segmentation_to_mask(a["segmentation"], dd["height"], dd["width"])
+                          for a in anns]).astype(bool)
+        labels = np.asarray([a["category_id"] for a in anns], np.int64)
+        crowd = np.asarray([bool(a["iscrowd"]) for a in anns])
+        coco.process({"scores": np.ones(int((~crowd).sum())), "labels": labels[~crowd],
+                      "masks": masks[~crowd]},
+                     {"labels": labels, "masks": masks, "iscrowd": crowd})
+    sem = SemSegEvaluator(K, ignore_label=255)
+    for dd in DatasetCatalog.get("ade20k_sem_seg_val"):
+        gt = load_sem_gt(dd)
+        sem.process(gt.copy(), gt)
+    name = "coco_2017_val_panoptic"
+    dicts = DatasetCatalog.get(name)
+    things = set(MetadataCatalog.get(name).thing_dataset_id_to_contiguous_id.values())
+    pan = PanopticEvaluator(K, tuple(c in things for c in range(K)))
+    for dd in dicts:
+        gt_map = read_panoptic_png(dd["pan_seg_file_name"]).astype(np.int64) - 1
+        segs = [{"id": s["id"] - 1, "category_id": s["category_id"],
+                 "iscrowd": s["iscrowd"]} for s in dd["segments_info"]]
+        pan.process(gt_map.copy(), [{k: s[k] for k in ("id", "category_id")} for s in segs],
+                    gt_map, segs)
+    got = {"AP": coco.evaluate()["AP"], "mIoU": sem.evaluate()["mIoU"],
+           "PQ": pan.evaluate()["PQ"]}
+    log("eval_oracle", **{k: repr(float(v)) for k, v in got.items()})
+    if any(float(v) != 100.0 for v in got.values()):
+        raise AssertionError(f"the ground truth as predictions scored {got}, not 100")
+
+
+def eval_image(cfg, dd) -> np.ndarray:
+    """One dataset image as the eval feeds it: resized and padded to its
+    bucket by the eval's mapper."""
+    from bm2f_tpu_torch.data.mappers import EvalMapper
+    from bm2f_tpu_torch.eval import bucket_ladder
+
+    return EvalMapper(short_edge=cfg.input.min_size_test, max_size=cfg.input.max_size_test,
+                      bucket=bucket_ladder(cfg.input.max_size_test),
+                      pad_value=cfg.model.pixel_mean)(dd)["images"]
+
+
+def check_k1_eval_buckets(pred):
+    """Phase 22: K1 and K1-bf16 at B=1 on the eval buckets, on the first
+    encoder layer's inputs of one synthetic image in each (through the
+    eval's mapper and forward), against the plain version, and timed beside
+    it and the bound. Returns {(bucket, dtype): row}."""
+    from bm2f_tpu_torch import eval as port_eval
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.models import pixel_decoder
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda, ms_deform_attn_plain
+
+    cfg = pred.cfg
+    dicts = DatasetCatalog.get("coco_2017_val")
+    rows = {}
+    for bucket, index in EVAL_BUCKETS.items():
+        images = eval_image(cfg, dicts[index])
+        if images.shape[0] != bucket:
+            raise AssertionError(f"image {index} went to bucket {images.shape[0]}, not {bucket}")
+        calls = []
+        with _watch(pixel_decoder, "ms_deform_attn", calls, lambda a, o: a):
+            port_eval._forward(cfg, pred.model, images[None])
+        v32, shapes, loc, attn = calls[0]
+        Q = loc.shape[1]
+        for dtype, v in (("f32", v32), ("bf16", v32.to(torch.bfloat16))):
+            got = ms_deform_attn_cuda(v, shapes, loc, attn)
+            torch.cuda.synchronize()
+            want = ms_deform_attn_plain(v, shapes, loc, attn)
+            err = (got - want).abs().max().item()
+            # each output sums 48 weighted samples in another order (phase 3;
+            # in bf16 the f32 arithmetic on the same bf16 rows, phase 13)
+            if not err <= (1e-4 if dtype == "f32" else 1e-5 + 1e-5 * want.abs().max().item()):
+                raise AssertionError(f"K1 {dtype} at bucket {bucket}: max abs err {err}")
+            k_ms = cuda_ms(lambda: ms_deform_attn_cuda(v, shapes, loc, attn), 50)
+            p_ms = cuda_ms(lambda: ms_deform_attn_plain(v, shapes, loc, attn), 5)
+            bound, by, n_bytes, flops = deform_bound_ms(
+                1, shapes, Q, len(shapes), loc, value_bytes=2 if dtype == "bf16" else 4)
+            rows[(bucket, dtype)] = {"shapes": [list(hw) for hw in shapes], "Q": Q,
+                                     "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                                     "bound_ms": bound, "bound_by": by}
+            log("time", kernel=f"ms_deform_attn_fwd{'_bf16' if dtype == 'bf16' else ''}",
+                case=f"eval_bucket_{bucket}", B=1, Q=Q, max_abs_err=f"{err:.3e}",
+                ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}",
+                bound_by=by, bytes=n_bytes, flops=flops, share_of_bound=f"{bound / k_ms:.3f}")
+        del calls, v32, loc, attn
+    return rows
+
+
+def weights_round_trip(pred, data_root: str):
+    """Phase 23: the f32 eval model through the port's checkpoint and
+    `--weights`; the orbax reader's named error where tensorstore is
+    missing."""
+    import importlib.util
+    import os
+
+    from bm2f_tpu_torch import eval as port_eval
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.predict import Predictor
+    from bm2f_tpu_torch.train.checkpoint import Checkpointer
+    from bm2f_tpu_torch.utils.convert_weights import load_weights
+
+    out_dir = ROOT / "output"
+    directory = tempfile.mkdtemp(prefix="chip_smoke_weights_", dir=out_dir)
+    try:
+        Checkpointer(directory).save_state(0, {"step": 0, "model": pred.model.state_dict()})
+        loaded = Predictor()
+        loaded.setup(CONFIG, directory, device="cuda")
+        cfg = pred.cfg
+        images = eval_image(cfg, DatasetCatalog.get("coco_2017_val")[0])[None]
+        a = port_eval._forward(cfg, pred.model, images)
+        b = port_eval._forward(cfg, loaded.model, images)
+        differ = [k for k in ("pred_logits", "pred_masks") if not torch.equal(a[k], b[k])]
+        del a, b, loaded
+        os.environ["DETECTRON2_DATASETS"] = data_root
+        via_cli = port_eval.main(["--config", CONFIG, "--dataset", "coco_2017_val",
+                                  "--weights", directory, "--max-images", "2"])
+        direct = port_eval.run_eval(cfg, pred.model, "coco_2017_val", max_images=2)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    if differ or via_cli != direct:
+        raise AssertionError(f"weights round trip: {differ} differ; metrics {via_cli} "
+                             f"through --weights against {direct}")
+    orbax = "tensorstore installed: not exercised here"
+    if importlib.util.find_spec("tensorstore") is None:
+        fake = Path(tempfile.mkdtemp(prefix="chip_smoke_orbax_", dir=out_dir))
+        try:
+            (fake / "0" / "default").mkdir(parents=True)
+            (fake / "0" / "default" / "_METADATA").write_text(json.dumps(
+                {"tree_metadata": {}, "use_ocdbt": True, "use_zarr3": False}))
+            load_weights(str(fake), pred.cfg)
+            raise AssertionError("the orbax reader ran without tensorstore")
+        except ImportError as e:
+            if "tensorstore" not in str(e):
+                raise
+            orbax = f"ImportError naming tensorstore ({str(e)[:60]}...)"
+        finally:
+            shutil.rmtree(fake, ignore_errors=True)
+    log("weights", predictions="bitwise equal", metrics_via_weights=repr(via_cli),
+        orbax_reader=repr(orbax))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1237,17 +1487,42 @@ def main() -> int:
     del trainer, batch
     torch.cuda.empty_cache()
 
-    # -- 19. result ---------------------------------------------------------
+    # -- 19. the eval's data ------------------------------------------------------------
+    data_root, _ = write_eval_dataset(ROOT / "output")
+    try:
+        # -- 20. the eval path ------------------------------------------------------------
+        eval_launches, _, eval_preds = eval_path()
+        torch.cuda.empty_cache()
+
+        # -- 21. the ground truth as predictions ------------------------------------------
+        gt_oracle()
+
+        # -- 22. K1 at the eval buckets ---------------------------------------------------
+        k1_buckets = check_k1_eval_buckets(eval_preds["f32"])
+        torch.cuda.empty_cache()
+
+        # -- 23. weights through the port's checkpoint and --weights ----------------------
+        weights_round_trip(eval_preds["f32"], data_root)
+        del eval_preds
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+
+    # -- 24. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
     k1_pd_f32 = bf16_launches["bf16_pd_f32"][0]
+    k1_eval = sum(n for n, _ in eval_launches.values())
+    k1b_eval = sum(n for _, n in eval_launches.values())
     kernels = [{
         "name": "ms_deform_attn_fwd",
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
-        "launches": launches + k1_train + k1_pd_f32,
+        "launches": launches + k1_train + k1_pd_f32 + k1_eval,
         "launches_by_path": {"serve": launches, "train": k1_train,
-                             "serve_bf16_pixel_decoder_f32": k1_pd_f32},
+                             "serve_bf16_pixel_decoder_f32": k1_pd_f32,
+                             **{f"eval_{r}": n for r, (n, _) in eval_launches.items() if n}},
+        "eval_buckets": {str(b): row for (b, dt), row in k1_buckets.items() if dt == "f32"},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1272,8 +1547,10 @@ def main() -> int:
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
-        "launches": bf16_launches["bf16"][1] + k1b_train,
-        "launches_by_path": {"serve_bf16": bf16_launches["bf16"][1], "train_bf16": k1b_train},
+        "launches": bf16_launches["bf16"][1] + k1b_train + k1b_eval,
+        "launches_by_path": {"serve_bf16": bf16_launches["bf16"][1], "train_bf16": k1b_train,
+                             **{f"eval_{r}": n for r, (_, n) in eval_launches.items() if n}},
+        "eval_buckets": {str(b): row for (b, dt), row in k1_buckets.items() if dt == "bf16"},
         "max_abs_err": k1b_err,
         "ms": k1b_ms,
         "plain_ms": k1b_plain_ms,

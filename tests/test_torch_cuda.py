@@ -669,3 +669,72 @@ def test_full_r50_bf16_forward_matches_f32_kernel_path(no_tf32):
         r_f32 = ((ours[key] - ref[key]).norm() / ref[key].norm()).item()
         r_plain = ((ours[key] - plain[key]).norm() / plain[key].norm()).item()
         assert r_f32 <= 0.05 and r_plain <= 0.05, (key, r_f32, r_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_is_bitwise_repeatable_without_a_global_mode(dtype):
+    """`Trainer.step` runs deterministically whatever the caller's global
+    settings (`utils.precision.deterministic_scope`): with no deterministic
+    mode set, two trainers from one seed end a SMALL_CARD step at 512x512
+    with the same bits in every parameter and buffer, and the mode is still
+    off after."""
+    from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
+
+    dev = require_cuda()
+    assert not torch.are_deterministic_algorithms_enabled()
+    over = {} if dtype == "float32" else {"model.dtype": "bfloat16",
+                                          "model.pixel_decoder_f32": False}
+    states = []
+    for _ in range(2):
+        trainer = Trainer(get_config("coco_instance_r50", {**SMALL_CARD, **over}),
+                          device=dev, seed=0)
+        trainer.step(synthetic_batch(2, 512, 4, seed=0, device=dev))
+        torch.cuda.synchronize()
+        states.append({k: v.detach().clone() for k, v in trainer.model.state_dict().items()})
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert not torch.backends.cudnn.deterministic
+    differing = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+    assert not differing, differing[:8]
+
+
+@pytest.mark.cuda
+def test_eval_post_processing_on_the_card_matches_the_cpu():
+    """The eval's on-device post-processing (`bm2f_tpu_torch.eval`) on the
+    card against the same functions on the CPU, on identical network
+    outputs at the 1344 bucket and a 480x640 original: the same labels,
+    instance masks that differ only where the CPU's logit lies within 1e-5
+    of 0 (f32 rounding of the two resizes), scores to rtol 1e-5, the same
+    semantic labels except at near-ties, the same panoptic map."""
+    from bm2f_tpu_torch import eval as port_eval
+    from bm2f_tpu_torch.models.maskformer import instance_topk_select
+
+    dev = require_cuda()
+    rng = np.random.RandomState(8)
+    q, k = 20, 80
+    logits = torch.from_numpy((rng.randn(q, k + 1) * 2).astype(np.float32))
+    logits[:10, rng.randint(0, k, 10)] += 8.0
+    masks = torch.from_numpy(rng.randn(q, 336, 336).astype(np.float32) * 3)
+    pad, valid, orig = (1344, 1344), (800, 1067), (480, 640)
+    cfg = get_config("coco_instance_r50")
+    thing = tuple(c < 40 for c in range(k))
+    out = {}
+    with torch.no_grad():
+        for d in ("cpu", dev):
+            lg, mk = logits.to(d), masks.to(d)
+            inst = port_eval.instance_on_device(lg, mk, pad, valid, orig, num_classes=k,
+                                                topk=100)
+            sem = port_eval.semantic_on_device(lg, mk, pad, valid, orig)
+            pan = port_eval.panoptic_on_device(cfg, lg, mk, pad, valid, orig, thing)
+            out[str(d)] = ({k_: v.cpu() for k_, v in inst.items()}, sem.cpu(),
+                           {k_: v.cpu() for k_, v in pan.items()})
+        sel = instance_topk_select(logits, masks, num_classes=k, topk=100)[2]
+        cpu_logits = port_eval._to_original(sel, pad, valid, orig)
+    (ic, sc, pc), (ig, sg, pg) = out["cpu"], out[str(dev)]
+    assert torch.equal(ic["labels"], ig["labels"])
+    flips = ic["masks"] != ig["masks"]
+    assert (cpu_logits[flips].abs() <= 1e-5 * masks.abs().max()).all()
+    torch.testing.assert_close(ig["scores"], ic["scores"], rtol=1e-5, atol=1e-7)
+    assert (sg != sc).float().mean().item() <= 1e-4
+    assert torch.equal(pg["valid"], pc["valid"])
+    assert (pg["panoptic_quidx"] != pc["panoptic_quidx"]).float().mean().item() <= 1e-4
