@@ -56,6 +56,9 @@ def solve_host(costs: np.ndarray) -> np.ndarray:
     for every column (target) the row (query) assigned to it, as the JAX
     package's `_solve_host` gives it with its native solver."""
     lead, (Q, G) = costs.shape[:-2], costs.shape[-2:]
+    if Q < G:  # the native solver would not return
+        raise ValueError(f"{G} targets but {Q} queries: every target needs a query "
+                         "(model.decoder.num_queries >= input.max_instances)")
     flat = np.ascontiguousarray(costs, dtype=np.float32).reshape(-1, Q, G)
     out = np.empty((flat.shape[0], G), dtype=np.int32)
     if flat.shape[0] and G:

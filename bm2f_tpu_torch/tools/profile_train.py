@@ -1,18 +1,21 @@
 """Where the device time of one train step goes, on the card.
 
     python -m bm2f_tpu_torch.tools.profile_train [--out output/profile_train.txt]
-        [--set KEY=VALUE ...]
+        [--config coco_instance_r50] [--instances 8] [--set KEY=VALUE ...]
 
-Builds `Trainer("coco_instance_r50")` at full width with seeded random
-weights, with `--set` overrides as the train entry point takes them (the JAX
-train bench's bf16 step: `--set model.dtype=bfloat16 --set
-model.pixel_decoder_f32=False --set train.matcher=jv`) (deformable projections perturbed as in `chip_smoke.py`) and
-`chip_smoke.py`'s train batch (B=2, 1024x1024, 8 targets per image), takes
+Builds `Trainer(--config)` at full width with seeded random weights, with
+`--set` overrides as the train entry point takes them (the JAX train
+bench's bf16 step: `--set model.dtype=bfloat16 --set
+model.pixel_decoder_f32=False --set train.matcher=jv`) (deformable
+projections perturbed as in `chip_smoke.py`) and `chip_smoke.py`'s train
+batch (B=2, 1024x1024, `--instances` targets per image, the last 2 of
+image 0 padding; the box-supervised presets take the same batch), takes
 one warm-up step, times 5 steps without the profiler (host clock, each
 ending in a synchronise), then profiles one step with `torch.profiler`.
-Prints the unprofiled step time (median) and the profiled one, the device
-time summed over every kernel and copy, the device-busy share against each
-step time, K1's and K2's device time, and writes the op tables to --out.
+Prints the unprofiled step time (median) and the profiled one, the peak
+allocated memory of the unprofiled steps, the device time summed over every
+kernel and copy, the device-busy share against each step time, K1's and
+K2's device time, and writes the op tables to --out.
 The split of a step by stage is `chip_smoke.py`'s `[train_stages]` line.
 Needs a card; exits non-zero without one.
 """
@@ -54,6 +57,8 @@ def timed_step(trainer: Trainer, batch) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="output/profile_train.txt")
+    ap.add_argument("--config", default="coco_instance_r50")
+    ap.add_argument("--instances", type=int, default=8)
     ap.add_argument("--set", action="append", default=[], type=parse_override,
                     metavar="KEY=VALUE")
     args = ap.parse_args(argv)
@@ -61,13 +66,15 @@ def main(argv=None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    cfg = get_config("coco_instance_r50", dict(args.set))
+    cfg = get_config(args.config, dict(args.set))
     trainer = Trainer(cfg, device=dev, seed=0)
     perturb_deformable(trainer.model)
-    batch = synthetic_batch(2, 1024, 8, seed=0, device=dev)
+    batch = synthetic_batch(2, 1024, args.instances, seed=0, device=dev)
     timed_step(trainer, batch)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
     plain = [timed_step(trainer, batch) for _ in range(UNPROFILED_STEPS)]
     step_ms = statistics.median(plain)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -80,11 +87,12 @@ def main(argv=None) -> int:
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     n_ops = sum(e.count for e in dev_events)
-    print(f"device={torch.cuda.get_device_name(0)!r} batch=2 size=1024 instances=8 "
-          f"dtype={cfg.model.dtype} pixel_decoder_f32={cfg.model.pixel_decoder_f32} "
-          f"matcher={cfg.train.matcher}")
+    print(f"device={torch.cuda.get_device_name(0)!r} config={args.config} "
+          f"sup_type={cfg.model.loss.sup_type} batch=2 size=1024 "
+          f"instances={args.instances} dtype={cfg.model.dtype} "
+          f"pixel_decoder_f32={cfg.model.pixel_decoder_f32} matcher={cfg.train.matcher}")
     print("unprofiled_steps_ms " + " ".join(f"{t:.2f}" for t in plain)
-          + f" median={step_ms:.2f}")
+          + f" median={step_ms:.2f} peak_mem_gib={peak_gib:.2f}")
     print(f"profiled_step_ms={profiled_ms:.2f} profiler_overhead_ms="
           f"{profiled_ms - step_ms:.2f} device_busy_ms={busy_ms:.2f} device_ops={n_ops} "
           f"busy_share_of_unprofiled_step={busy_ms / step_ms:.3f} "

@@ -1,25 +1,42 @@
-"""Train entry point of the port. A quick run of N timed steps:
+"""Train entry point of the port, the counterpart of the root train.py.
+
+Training on a registered dataset (the loop, `train.loop.run_train_loop`):
+
+    python -m bm2f_tpu_torch.train --config coco_instance_r50_wo_lsj_projpair \\
+        --dataset coco_2017_train [--eval-dataset coco_2017_val] \\
+        [--data-root DIR] --max-iter N --output out [--resume]
+
+registers the builtin splits under `--data-root` (else
+`$DETECTRON2_DATASETS`, else ./datasets) and reads `--dataset` through the
+config's mapper (`input.dataset_mapper`, seeded with `train.seed`) and
+`build_train_loader`, `train.ims_per_batch` images a step, on this one
+device (DDP is ROADMAP queue 1 item 15). As the JAX package's train.py, the
+loop dispatches no per-step synchronise; the console, JSON
+(`<output>/metrics.json`) and TensorBoard writers run every
+`train.log_period` steps; a checkpoint goes under `<output>/checkpoints`
+every `train.checkpoint_period` steps and at the end; with
+`--eval-dataset`, `run_eval` runs every `train.eval_period` steps before
+the last and its metrics go to the writers as `eval/<key>` at that
+iteration. `--resume` continues from the latest checkpoint there (the
+dataset's stream starts again from its seed, as in JAX). `--eval-only`
+evaluates the model (after `--resume`, the latest checkpoint's) on
+`--eval-dataset`, else `--dataset`, and prints its metrics. Box-supervised
+training is the config's `model.loss.sup_type` (the `*_proj` and
+`*_projpair` presets).
+
+`--synthetic` trains in the loop on seeded synthetic batches in the JAX
+bench's recipe (`trainer.synthetic_batch`, `--batch`, `--size`,
+`--instances`), a new one a step, so that a resumed run reads what an
+uninterrupted one would. Without `--max-iter`, `--resume` or `--eval-only`
+the entry point is a quick run of N timed steps on one synthetic batch:
 
     python -m bm2f_tpu_torch.train --config coco_instance_r50 --steps 3 \\
         --batch 2 --size 1024 --instances 8 --seed 0 --device cuda
 
-prints one line per step (every loss of the final layer, total_loss,
-grad_norm and the step time, each step waited for). With `--max-iter N` or
-`--resume` it trains as the JAX package's train.py does
-(`train.loop.run_train_loop`): no per-step synchronise, the console, JSON
-(`<output>/metrics.json`) and TensorBoard writers every `train.log_period`
-steps, a checkpoint under `<output>/checkpoints` every
-`train.checkpoint_period` steps and at the end; `--resume` continues from
-the latest checkpoint there:
-
-    python -m bm2f_tpu_torch.train --max-iter 20 --output out \\
-        --set train.checkpoint_period=10
-    python -m bm2f_tpu_torch.train --max-iter 40 --output out --resume
-
-The model has seeded random weights and the data are seeded synthetic
-batches in the JAX bench's recipe (`trainer.synthetic_batch`), a new one a
-step; dataset loading is a later slice. `--set KEY=VALUE` overrides a
-config field (a Python literal): the JAX train bench's bf16 step is
+which prints one line per step (every loss of the final layer, total_loss,
+grad_norm and the step time, each step waited for). The model has seeded
+random weights (`--seed`). `--set KEY=VALUE` overrides a config field (a
+Python literal): the JAX train bench's bf16 step is
 `--set model.dtype=bfloat16 --set model.pixel_decoder_f32=False
 --set train.matcher=jv`; a small model on the CPU:
 
@@ -31,6 +48,7 @@ config field (a Python literal): the JAX train bench's bf16 step is
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import time
@@ -39,7 +57,7 @@ import torch
 
 from bm2f_tpu_torch.config import get_config, parse_override, update
 from bm2f_tpu_torch.train.checkpoint import Checkpointer
-from bm2f_tpu_torch.train.loop import run_train_loop, synthetic_loader
+from bm2f_tpu_torch.train.loop import dispatch_eval, run_train_loop, synthetic_loader
 from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
 from bm2f_tpu_torch.utils.events import (
     ConsoleWriter,
@@ -60,22 +78,42 @@ def quick_run(trainer: Trainer, args) -> None:
         metrics = trainer.step(batch)
         m = {k: float(v) for k, v in metrics.items()}  # waits for the step
         ms = (time.perf_counter() - t0) * 1e3
-        print(f"step {i} total_loss {m['total_loss']:.4f} "
-              f"loss_ce {m['loss_ce']:.4f} loss_mask {m['loss_mask']:.4f} "
-              f"loss_dice {m['loss_dice']:.4f} grad_norm {m['grad_norm']:.4f} "
-              f"step_ms {ms:.1f}", flush=True)
+        final = " ".join(f"{k} {v:.4f}" for k, v in m.items()
+                         if k.startswith("loss_") and not k.rsplit("_", 1)[-1].isdigit())
+        print(f"step {i} total_loss {m['total_loss']:.4f} {final} "
+              f"grad_norm {m['grad_norm']:.4f} step_ms {ms:.1f}", flush=True)
+
+
+def train_loader(cfg, args, start: int):
+    """The loop's batches: `--dataset` through the config's mapper and
+    `build_train_loader`, or seeded synthetic ones from step `start`."""
+    if args.synthetic:
+        return synthetic_loader(args.batch, args.size, args.instances, args.seed,
+                                cfg.model.num_classes, start=start)
+    from bm2f_tpu_torch.data import build_train_loader
+    from bm2f_tpu_torch.data.mappers import MAPPERS
+
+    mapper = MAPPERS[cfg.input.dataset_mapper](cfg.input, seed=cfg.train.seed)
+    return build_train_loader(args.dataset, mapper, cfg.train.ims_per_batch,
+                              seed=cfg.train.seed)
 
 
 def train(trainer: Trainer, args) -> int:
-    """The JAX package's train.py main, on synthetic data: resume, writers,
-    the loop. Returns the last iteration."""
+    """The JAX package's train.py main: resume, then the eval alone
+    (`--eval-only`) or the writers and the loop. Returns the last
+    iteration."""
     cfg = trainer.cfg
     ckpt = Checkpointer(os.path.join(args.output, "checkpoints"))
     start = ckpt.resume_or_load(trainer, resume=args.resume)
     if start is not None:
         print(f"resumed from step {start} in {ckpt.directory}", flush=True)
-    loader = synthetic_loader(args.batch, args.size, args.instances, args.seed,
-                              cfg.model.num_classes, start=trainer.step_count)
+    if args.eval_only:
+        res = dispatch_eval(cfg, trainer.model, args.eval_dataset or args.dataset)
+        print("eval " + json.dumps({"iteration": trainer.step_count,
+                                    **{f"eval/{k}": float(v) for k, v in res.items()}}),
+              flush=True)
+        return trainer.step_count
+    loader = train_loader(cfg, args, trainer.step_count)
     writers = [
         ConsoleWriter(cfg.train.log_period),
         JSONWriter(os.path.join(args.output, "metrics.json"), cfg.train.log_period),
@@ -83,7 +121,8 @@ def train(trainer: Trainer, args) -> int:
     ]
     if args.wandb:
         writers.append(WandBWriter())
-    it = run_train_loop(cfg, trainer, loader, next(loader), ckpt, EventStorage(), writers)
+    it = run_train_loop(cfg, trainer, loader, next(loader), ckpt, EventStorage(), writers,
+                        eval_dataset=args.eval_dataset)
     print(f"training done at iter {it}", flush=True)
     return it
 
@@ -97,20 +136,39 @@ def main(argv=None) -> int:
                     help="train to this iteration (train.optimizer.max_iter)")
     ap.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoint under --output")
+    ap.add_argument("--dataset", default="coco_2017_train",
+                    help="the registered split the loop trains on")
+    ap.add_argument("--eval-dataset", default="",
+                    help="evaluate this split every train.eval_period steps")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="evaluate (--eval-dataset, else --dataset) and exit")
+    ap.add_argument("--data-root", default="",
+                    help="where the datasets are (default $DETECTRON2_DATASETS "
+                         "or ./datasets)")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="train the loop on seeded synthetic batches (--batch, "
+                         "--size, --instances), not --dataset")
     ap.add_argument("--output", default="./output")
     ap.add_argument("--wandb", action="store_true")
-    ap.add_argument("--batch", type=int, default=2)
-    ap.add_argument("--size", type=int, default=1024)
-    ap.add_argument("--instances", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=2, help="synthetic batches")
+    ap.add_argument("--size", type=int, default=1024, help="synthetic batches")
+    ap.add_argument("--instances", type=int, default=8, help="synthetic batches")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--set", action="append", default=[], type=parse_override,
                     metavar="KEY=VALUE")
     args = ap.parse_args(argv)
-    looped = bool(args.max_iter or args.resume)
+    looped = bool(args.max_iter or args.resume or args.eval_only)
     if looped and args.steps is not None:
-        ap.error("--steps is the quick run; --max-iter and --resume train in the loop")
+        ap.error("--steps is the quick run; --max-iter, --resume and --eval-only "
+                 "run the loop's set-up")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    if looped:
+        from bm2f_tpu_torch.data.cityscapes import register_all_cityscapes
+        from bm2f_tpu_torch.data.datasets import register_all_builtin_datasets
+
+        register_all_builtin_datasets(args.data_root or None, force=bool(args.data_root))
+        register_all_cityscapes(args.data_root or None)
 
     cfg = get_config(args.config, dict(args.set))
     if args.max_iter:

@@ -8,17 +8,18 @@
   (by then the device has long finished it); writers flush at `log_period`
   from the pulled rows;
 - the next batch is uploaded while the current step runs on the device;
-- a save every `train.checkpoint_period` steps and a forced save at the end.
+- a save every `train.checkpoint_period` steps and a forced save at the end;
+- with an eval dataset, an evaluation every `train.eval_period` steps
+  before the last (`dispatch_eval`, as at root train.py:127-145), its
+  metrics put into the storage as `eval/<key>` and written at once.
 
-The scalars carry `lr` and `eta_hours` as the JAX loop's do. Evaluation
-during training (`dispatch_eval`) waits for the evaluators (ROADMAP queue 1
-item 10): the loop refuses an eval dataset.
+The scalars carry `lr` and `eta_hours` as the JAX loop's do.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Iterable, Iterator, List, Mapping, Sequence
+from typing import Dict, Iterable, Iterator, List, Mapping, Sequence
 
 import torch
 
@@ -43,16 +44,27 @@ def to_device(batch: Mapping[str, object], device: torch.device) -> dict:
     return out
 
 
+def dispatch_eval(cfg, model, dataset: str) -> Dict[str, float]:
+    """`eval.run_eval` of `model` on `dataset` (the evaluator its metadata
+    names), with the model in eval mode for the pass and back in train mode
+    after. Draws from no generator of the trainer and touches no optimizer
+    state, so that an eval mid-run leaves the training result as it was."""
+    from bm2f_tpu_torch.eval import run_eval
+
+    model.eval()
+    try:
+        return run_eval(cfg, model, dataset)
+    finally:
+        model.train()
+
+
 def run_train_loop(cfg, trainer, loader: Iterator[Mapping[str, object]],
                    first_batch: Mapping[str, object], ckpt, storage,
                    writers: Sequence, eval_dataset: str = "") -> int:
     """Steps `trainer` from its `step_count` to `cfg.train.optimizer.max_iter`
-    on `first_batch`, then the batches of `loader`, one a step. Returns the
-    last iteration."""
-    if eval_dataset:
-        raise NotImplementedError(
-            f"evaluation during training ({eval_dataset!r}): the evaluators are "
-            "ROADMAP queue 1 item 10")
+    on `first_batch`, then the batches of `loader`, one a step, evaluating
+    `eval_dataset` (when given) every `train.eval_period` steps before the
+    last. Returns the last iteration."""
     max_iter = cfg.train.optimizer.max_iter
     log_period = max(int(cfg.train.log_period), 1)
     lr_sched = trainer.optimizer.schedule
@@ -95,10 +107,17 @@ def run_train_loop(cfg, trainer, loader: Iterator[Mapping[str, object]],
         it += 1
         drain(ASYNC_DEPTH)
         do_ckpt = it % cfg.train.checkpoint_period == 0
-        if it % log_period == 0 or do_ckpt or it >= max_iter:
+        do_eval = bool(eval_dataset and cfg.train.eval_period
+                       and it % cfg.train.eval_period == 0 and it < max_iter)
+        if it % log_period == 0 or do_ckpt or do_eval or it >= max_iter:
             flush()
         if do_ckpt:
             ckpt.save(it, trainer)
+        if do_eval:
+            res = dispatch_eval(cfg, trainer.model, eval_dataset)
+            storage.put_scalars(it, **{f"eval/{k}": float(v) for k, v in res.items()})
+            for w in writers:
+                w.write(storage, force=True)
     flush()
     ckpt.save(it, trainer, force=True)
     return it

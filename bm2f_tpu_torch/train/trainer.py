@@ -1,6 +1,10 @@
 """The train step on one device: the counterpart of the JAX package's
-`make_train_step` / `Trainer` (bm2f_tpu/train/trainer.py:36-152) for
-mask-supervised image training (`model.loss.sup_type == "mask"`).
+`make_train_step` / `Trainer` (bm2f_tpu/train/trainer.py:36-152) for image
+training, dispatched on `model.loss.sup_type` as the JAX `compute_loss` is:
+"mask" (`losses.criterion.set_criterion`), and the box-supervised
+"mask_projection" and "mask_projection_and_pairwise"
+(`losses.weaksup_criterion.weaksup_set_criterion` on targets built from the
+batch's raw images and box masks, `losses.target_prep`).
 
 A step is: forward, matcher costs, the assignment (`train.matcher`:
 `matching.hungarian.make_assign_fn`), losses, backward, clip + AdamW. It
@@ -33,12 +37,18 @@ import torch
 
 from bm2f_tpu_torch.config import Config
 from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, draw_points, set_criterion
+from bm2f_tpu_torch.losses.target_prep import build_weaksup_targets
+from bm2f_tpu_torch.losses.weaksup import mask_update_pix_thr, pairwise_warmup_factor
+from bm2f_tpu_torch.losses.weaksup_criterion import weaksup_set_criterion
 from bm2f_tpu_torch.matching.hungarian import make_assign_fn
 from bm2f_tpu_torch.models.maskformer import build_model, normalize_images
 from bm2f_tpu_torch.train.optim import AdamW
 from bm2f_tpu_torch.utils.precision import deterministic_scope, f32_scope
 
 log = logging.getLogger(__name__)
+
+# the image values of `model.loss.sup_type` (config.LossConfig)
+IMAGE_SUP_TYPES = ("mask", "mask_projection", "mask_projection_and_pairwise")
 
 
 def criterion_config(cfg: Config) -> SetCriterionConfig:
@@ -57,13 +67,12 @@ def criterion_config(cfg: Config) -> SetCriterionConfig:
 
 def _check_trainable(cfg: Config) -> None:
     """Branches of the JAX train step that later slices of the port bring."""
-    if cfg.task == "video":
+    sup = cfg.model.loss.sup_type
+    if cfg.task == "video" or sup not in IMAGE_SUP_TYPES:
         raise NotImplementedError(
-            "video training: ROADMAP queue 1 item 18 (video criterion)")
-    if cfg.model.loss.sup_type != "mask":
-        raise NotImplementedError(
-            f"sup_type {cfg.model.loss.sup_type!r}: weak supervision is ROADMAP "
-            "queue 1 item 19")
+            f"video training (task {cfg.task!r}, sup_type {sup!r}): ROADMAP queue 1 "
+            "item 18 (video criterion) and, for a weak sup_type, item 19's video half "
+            "(temporal pairs, spatial and temporal pairwise losses)")
 
 
 def synthetic_batch(batch: int, size: int, instances: int, seed: int,
@@ -112,9 +121,10 @@ class StageTimer:
 
 
 class Trainer:
-    """`coco_instance_r50`-style mask-supervised training on one device.
-    The model is drawn from `seed` (`build_model`); the criterion's random
-    points come from a `torch.Generator` on `device` seeded with `seed`."""
+    """Image training on one device, mask- or box-supervised. The model is
+    drawn from `seed` (`build_model`); the mask criterion's random points
+    come from a `torch.Generator` on `device` seeded with `seed` (the weak
+    criterion draws none)."""
 
     def __init__(self, cfg: Config, device="cuda", seed: int = 0):
         _check_trainable(cfg)
@@ -158,16 +168,37 @@ class Trainer:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Forward + criterion: (total_loss, losses). `points` as
         `draw_points` gives them (drawn from the trainer's generator when
-        None); deform_impl="plain" runs the plain deformable attention (a
-        parity reference for the kernels)."""
+        None; the weak criterion takes none); deform_impl="plain" runs the
+        plain deformable attention (a parity reference for the kernels).
+        The weak criterion's pairwise warmup and pixel threshold are read at
+        `step_count`, before the step's update, as JAX reads `state.step`."""
         out = self.model(normalize_images(batch["images"], self.cfg.model), deform_impl)
         if mark is not None:
             mark("forward")
+        if self.cfg.model.loss.sup_type != "mask":
+            return self._weak_loss(out, batch, mark)
         if points is None:
             points = draw_points(self.ccfg, out["aux_logits"].shape[0] + 1,
                                  out["pred_logits"].shape[0], self.generator)
         targets = {k: batch[k] for k in ("labels", "masks", "valid")}
         return set_criterion(out, targets, self.ccfg, points, mark, self.assign_fn)
+
+    def _weak_loss(self, out, batch, mark):
+        lc, weak = self.cfg.model.loss, self.cfg.model.loss.weak
+        pw = weak.pairwise
+        targets = build_weaksup_targets(batch["images"], batch["labels"], batch["masks"],
+                                        batch["valid"], kernel_size=pw.size,
+                                        dilation=pw.dilation)
+        pix_thr = None
+        if weak.mask_update_enabled:
+            pix_thr = mask_update_pix_thr(self.step_count, self.cfg.train.optimizer.max_iter,
+                                          weak.mask_update_steps, weak.mask_update_pix_thrs)
+        return weaksup_set_criterion(
+            out, targets, self.ccfg, sup_type=lc.sup_type,
+            projection_weight=weak.projection_weight, pairwise_weight=weak.pairwise_weight,
+            color_thresh=pw.color_thresh, kernel_size=pw.size, dilation=pw.dilation,
+            warmup_factor=pairwise_warmup_factor(self.step_count, pw.warmup_iters),
+            assign_fn=self.assign_fn, mask_update_pix_thr=pix_thr, mark=mark)
 
     def step(self, batch: Mapping[str, torch.Tensor],
              points: Optional[Mapping[str, torch.Tensor]] = None,

@@ -3,7 +3,9 @@ stack (reference: train_net.py:281-285 build_writers, utils/wandb_writer.py:6-35
 WandBWriter; loss keys are per-component and per-aux-layer, e.g. loss_ce_3).
 
 Writers: console, JSONL file, TensorBoard (if available), wandb (if
-available and enabled).
+available and enabled). Each writes every `log_period` steps, or when
+called with `force=True` (the port's training loop forces a write after an
+evaluation, so that its metrics are written at their iteration).
 
 The port's copy of the JAX package's bm2f_tpu/utils/events.py (which is
 JAX-free), so that both packages log the same lines; the port imports
@@ -44,8 +46,8 @@ class ConsoleWriter:
         self.max_keys = max_keys
         self._t = time.time()
 
-    def write(self, storage: EventStorage):
-        if storage.step % self.log_period != 0:
+    def write(self, storage: EventStorage, force: bool = False):
+        if storage.step % self.log_period != 0 and not force:
             return
         s = storage.smoothed()
         dt = (time.time() - self._t) / max(self.log_period, 1)
@@ -64,8 +66,8 @@ class JSONWriter:
         self.f = open(path, "a")
         self.log_period = log_period
 
-    def write(self, storage: EventStorage):
-        if storage.step % self.log_period != 0:
+    def write(self, storage: EventStorage, force: bool = False):
+        if storage.step % self.log_period != 0 and not force:
             return
         rec = {"iteration": storage.step, **storage.smoothed()}
         self.f.write(json.dumps(rec) + "\n")
@@ -82,8 +84,8 @@ class TensorBoardWriter:
             self.w = None
         self.log_period = log_period
 
-    def write(self, storage: EventStorage):
-        if self.w is None or storage.step % self.log_period != 0:
+    def write(self, storage: EventStorage, force: bool = False):
+        if self.w is None or (storage.step % self.log_period != 0 and not force):
             return
         for k, v in storage.latest().items():
             self.w.add_scalar(k, v, storage.step)
@@ -106,7 +108,7 @@ class WandBWriter:
             self.run = None
         self.log_period = log_period
 
-    def write(self, storage: EventStorage):
-        if self.run is None or storage.step % self.log_period != 0:
+    def write(self, storage: EventStorage, force: bool = False):
+        if self.run is None or (storage.step % self.log_period != 0 and not force):
             return
         self.wandb.log(storage.latest(), step=storage.step)

@@ -94,7 +94,27 @@ Phases, each printing its own line:
      calls) with the same predictions bitwise, and through the entry point
      `python -m bm2f_tpu_torch.eval --weights` with the same metrics; where
      tensorstore is missing, the orbax reader's named ImportError;
- 24. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
+ 24. the weak train path: `Trainer` on `coco_instance_r50_wo_lsj_projpair`
+     at full width (box-supervised: projection and pairwise losses, the
+     pseudo-mask update on, the pairwise warmup over 1 step), B=2 on the
+     864x1408 canvas, its batches from phase 19's split through
+     `MaskFormerInstanceMapper` and `build_train_loader` (targets padded to
+     G=100): one warm-up step and 3 timed steps with every count set to 0
+     just before and read just after (K1 and K2 6 launches a step, none on
+     a bf16 value); finite losses, nonzero projection and pairwise losses,
+     nonzero gradients of every encoder layer's deformable projections,
+     the split by stage and peak memory; then the mask-supervised
+     `coco_instance_r50_wo_lsj` on the same batches, timed the same way;
+ 25. the weak step's loss and every gradient through the kernels against
+     the plain path on the same batch, and two trainers from one seed
+     ending two weak steps with the same bits;
+ 26. the train entry point as a subprocess on the card: `python -m
+     bm2f_tpu_torch.train --config coco_instance_r50_proj --dataset
+     coco_2017_val --eval-dataset coco_2017_val --max-iter 4` on phase 19's
+     split (B=2, an eval and a checkpoint every 2 steps): the loss scalars
+     and eval/ metrics in metrics.json at iteration 2, checkpoints at 2 and
+     4, then `--eval-only --resume` on the checkpoint at 4;
+ 27. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
 
 Any failure raises and the script exits non-zero. It imports nothing of JAX
@@ -184,6 +204,16 @@ EVAL_RUNS = (("coco", "coco_2017_val", {}), ("sem_seg", "ade20k_sem_seg_val", {}
              ("coco_panoptic_seg", "coco_2017_val_panoptic", {}),
              ("coco_bf16", "coco_2017_val", BF16))
 EVAL_BUCKETS = {992: 4, 1344: 0}  # bucket: index of an image of that bucket
+# the weak train path (phases 24-26): the box-supervised preset on the fixed
+# 864x1408 canvas of its mapper, the pairwise warmup over one step (at the
+# preset's 10000 the pairwise loss is 0 in the first steps and proves
+# nothing), the pseudo-mask update on; and the mask-supervised preset of the
+# same mapper, so that the weak criterion's own cost shows
+WEAK_CONFIG, WEAK_MASK_CONFIG = "coco_instance_r50_wo_lsj_projpair", "coco_instance_r50_wo_lsj"
+WEAK_OVER = {"train.ims_per_batch": 2, "model.loss.weak.pairwise.warmup_iters": 1,
+             "model.loss.weak.mask_update_enabled": True}
+# the entry point's run (phase 26)
+ENTRY_CONFIG, ENTRY_ITERS, ENTRY_PERIOD = "coco_instance_r50_proj", 4, 2
 # the probe: level sizes of every impl; CUDA-event launches
 PROBE_LEVELS, PROBE_ITERS = (625, 2500, 10000), 20
 # the probe's row of each kernel in the kernels line
@@ -1311,6 +1341,189 @@ def weights_round_trip(pred, data_root: str):
         orbax_reader=repr(orbax))
 
 
+def weak_batches(cfg, dev, n: int) -> list:
+    """`n` batches of phase 19's `coco_2017_val` split through the config's
+    mapper and `build_train_loader`, on the card."""
+    from bm2f_tpu_torch.data import build_train_loader
+    from bm2f_tpu_torch.data.mappers import MAPPERS
+    from bm2f_tpu_torch.train.loop import to_device
+
+    mapper = MAPPERS[cfg.input.dataset_mapper](cfg.input, seed=cfg.train.seed)
+    loader = build_train_loader("coco_2017_val", mapper, cfg.train.ims_per_batch,
+                                seed=cfg.train.seed)
+    return [to_device(next(loader), dev) for _ in range(n)]
+
+
+def make_weak_trainer(config, dev, seed=0):
+    """A full-width trainer of `config` with WEAK_OVER, deformable
+    projections perturbed as `make_trainer`'s."""
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(get_config(config, WEAK_OVER), device=dev, seed=seed)
+    perturb_deformable(trainer.model)
+    return trainer
+
+
+def weak_train_path(trainer, batches, dev, path: str):
+    """Phase 24: one warm-up step on batches[0], then a timed step on each
+    of the others, every count set to 0 just before and read just after.
+    Returns (K1, K2 launches over the timed steps, the median step ms)."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+    from bm2f_tpu_torch.train.trainer import StageTimer
+
+    t0 = time.perf_counter()
+    trainer.step(batches[0])  # warm-up (cuDNN algorithm choice), not counted
+    torch.cuda.synchronize()
+    b, g, h, w = batches[0]["masks"].shape
+    log("weak_setup", path=path, sup_type=trainer.cfg.model.loss.sup_type, batch=b,
+        targets=g, canvas=f"{h}x{w}",
+        valid_targets=int(sum(x["valid"].sum().item() for x in batches[1:])),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    if g != trainer.cfg.input.max_instances:
+        raise AssertionError(f"targets padded to {g}, not input.max_instances")
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer(dev)
+    reset_counts()
+    step_ms, weak = [], trainer.cfg.model.loss.sup_type != "mask"
+    for i, batch in enumerate(batches[1:]):
+        timer.start()
+        t = time.perf_counter()
+        metrics = {k: v.item() for k, v in trainer.step(batch, mark=timer).items()}
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{path} step {i}: non-finite {bad}")
+        final = {k: f"{v:.4f}" for k, v in metrics.items()
+                 if k.startswith("loss_") and not k.rsplit("_", 1)[-1].isdigit()}
+        log("weak_step", path=path, step=i, total_loss=f"{metrics['total_loss']:.4f}",
+            **final, grad_norm=f"{metrics['grad_norm']:.4f}", step_ms=f"{step_ms[-1]:.2f}")
+        zero = [k for k in ("loss_mask_projection", "loss_pairwise")
+                if weak and not metrics[k] > 0]
+        if zero:
+            raise AssertionError(f"{path} step {i}: {zero} zero")
+    n_steps = len(batches) - 1
+    launches = (ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches)
+    bf16_launches = (ms_deform_attn_cuda.launches_bf16, ms_deform_attn_bwd_cuda.launches_bf16)
+    layers = trainer.model.sem_seg_head.pixel_decoder.transformer.encoder.layers
+    if launches != (len(layers) * n_steps,) * 2 or bf16_launches != (0, 0):
+        raise AssertionError(f"{path}: K1, K2 launched {launches} times in {n_steps} steps, "
+                             f"expected {len(layers) * n_steps} each, and on a bf16 value "
+                             f"{bf16_launches}, expected none")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads = {}
+    for i, layer in enumerate(layers):
+        for name in ("value_proj", "sampling_offsets", "attention_weights"):
+            gw = getattr(layer.self_attn, name).weight.grad
+            grads[f"{i}.{name}"] = 0.0 if gw is None else gw.abs().sum().item()
+    zero = [k for k, v in grads.items() if not v > 0]
+    if zero:
+        raise AssertionError(f"{path}: no gradient reached encoder projections {zero}")
+    median = statistics.median(step_ms)
+    log("weak_main", path=path, k1_launches=launches[0], k2_launches=launches[1],
+        step_ms=" ".join(f"{v:.2f}" for v in step_ms), step_ms_median=f"{median:.2f}",
+        peak_mem_gib=f"{peak:.2f}", min_encoder_grad_abs_sum=f"{min(grads.values()):.3e}")
+    log("weak_stages", path=path, **{k: f"{v / n_steps:.2f}ms" for k, v in timer.ms.items()})
+    return launches, median
+
+
+def weak_parity(trainer, batch, dev):
+    """Phase 25, first part: the weak loss and every parameter's gradient
+    through K1 + K2 against the plain path (deform_impl="plain") on the same
+    weights and batch: loss rtol 1e-4, each gradient within a norm-relative
+    1e-3 (`grad_parity`'s tolerances at the init). The weak criterion draws
+    no random points; the assignments are counted apart."""
+    names, params = zip(*trainer.model.named_parameters())
+    res = {}
+    for impl in ("auto", "plain"):
+        asg = []
+        with _watch(trainer, "assign_fn", asg, lambda a, o: o):
+            total, losses = trainer.loss(batch, deform_impl=impl)
+            grads = torch.autograd.grad(total, params)
+        res[impl] = (total.item(), grads, asg[0], {k: v.item() for k, v in losses.items()})
+    (lk, gk, ak, mk), (lp, gp, ap, mp) = res["auto"], res["plain"]
+    rel = [rel_err(a, b) for a, b in zip(gk, gp)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    log("weak_parity", loss_kernel=f"{lk:.6f}", loss_plain=f"{lp:.6f}",
+        loss_rel=f"{abs(lk - lp) / abs(lp):.3e}", params=len(names),
+        worst=f"{rel[worst]:.3e}@{names[worst]}",
+        loss_pairwise=f"{mk['loss_pairwise']:.6f}/{mp['loss_pairwise']:.6f}",
+        assignments_differing=int((ak != ap).sum()))
+    if not (mk["loss_pairwise"] > 0 and mk["loss_mask_projection"] > 0):
+        raise AssertionError(f"weak losses zero at parity: {mk}")
+    if not abs(lk - lp) <= 1e-4 * abs(lp):
+        raise AssertionError(f"weak loss through the kernels {lk} vs plain {lp}")
+    bad = [(n, r) for n, r in zip(names, rel) if not r <= 1e-3]
+    if bad:
+        raise AssertionError(f"weak gradients, kernel against plain: {bad[:5]}")
+
+
+def weak_repeats(batches, dev):
+    """Phase 25, second part: two trainers from one seed, two weak steps
+    each (the second with the pairwise warmup at 1), end with the same bits
+    in every parameter, buffer and moment."""
+    states = []
+    for _ in range(2):
+        trainer = make_weak_trainer(WEAK_CONFIG, dev)
+        for batch in batches[:2]:
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        states.append(trainer.state_dict())
+        del trainer
+    bad = _same_state(*states)
+    log("weak_repeat", steps=2, state_keys=len(states[0]["model"]),
+        differing=len(bad))
+    if bad:
+        raise AssertionError(f"two weak steps from one seed differ in {bad[:8]}")
+
+
+def entry_point_run(data_root: str):
+    """Phase 26: the train entry point as a subprocess on the card, trained
+    and evaluated on phase 19's split, then `--eval-only --resume`. Returns
+    its wall seconds."""
+    from bm2f_tpu_torch.train.checkpoint import Checkpointer
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=ROOT / "output")
+    base = [sys.executable, "-m", "bm2f_tpu_torch.train", "--config", ENTRY_CONFIG,
+            "--dataset", "coco_2017_val", "--data-root", data_root, "--output", out,
+            "--set", "train.ims_per_batch=2", "--set", f"train.eval_period={ENTRY_PERIOD}",
+            "--set", f"train.checkpoint_period={ENTRY_PERIOD}"]
+
+    def run(extra):
+        t0 = time.perf_counter()
+        res = subprocess.run(base + extra, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"{' '.join(extra)}: exit {res.returncode}\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        return res.stdout, time.perf_counter() - t0
+
+    try:
+        stdout, train_s = run(["--eval-dataset", "coco_2017_val",
+                               "--max-iter", str(ENTRY_ITERS)])
+        lines = [json.loads(ln) for ln in Path(out, "metrics.json").read_text().splitlines()]
+        steps = Checkpointer(str(Path(out, "checkpoints"))).all_steps()
+        eval_out, eval_s = run(["--eval-only", "--resume"])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    at = [ln for ln in lines if ln["iteration"] == ENTRY_PERIOD]
+    want = {"total_loss", "loss_ce", "loss_mask_projection", "grad_norm", "eval/AP"}
+    if not at or not want <= set(at[0]) or f"training done at iter {ENTRY_ITERS}" not in stdout:
+        raise AssertionError(f"metrics.json {lines}; stdout {stdout[-2000:]}")
+    if not {ENTRY_PERIOD, ENTRY_ITERS} <= set(steps):
+        raise AssertionError(f"checkpoints at {steps}")
+    evals = [json.loads(ln[5:]) for ln in eval_out.splitlines() if ln.startswith("eval ")]
+    if (f"resumed from step {ENTRY_ITERS}" not in eval_out or not evals
+            or evals[0]["iteration"] != ENTRY_ITERS or "eval/AP" not in evals[0]):
+        raise AssertionError(f"--eval-only: {eval_out[-2000:]}")
+    log("entry_point", config=ENTRY_CONFIG, max_iter=ENTRY_ITERS, train_eval_s=f"{train_s:.2f}",
+        eval_only_s=f"{eval_s:.2f}", checkpoints=steps,
+        metrics_at_2=",".join(sorted(k for k in at[0] if k.startswith("eval/"))),
+        eval_only=repr({k: round(v, 3) for k, v in evals[0].items()}))
+    return train_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1505,10 +1718,31 @@ def main() -> int:
         weights_round_trip(eval_preds["f32"], data_root)
         del eval_preds
         torch.cuda.empty_cache()
+
+        # -- 24. the weak train path, and the mask step on the same batches ---------------
+        from bm2f_tpu_torch.config import get_config
+
+        batches = weak_batches(get_config(WEAK_CONFIG, WEAK_OVER), dev, TRAIN_STEPS + 1)
+        trainer = make_weak_trainer(WEAK_CONFIG, dev)
+        (k1_weak, k2_weak), _ = weak_train_path(trainer, batches, dev, "weak")
+
+        # -- 25. the weak step against the plain path; repeatability ----------------------
+        weak_parity(trainer, batches[-1], dev)
+        del trainer
+        torch.cuda.empty_cache()
+        weak_repeats(batches, dev)
+        torch.cuda.empty_cache()
+        trainer = make_weak_trainer(WEAK_MASK_CONFIG, dev)
+        (k1_mask_wo_lsj, k2_mask_wo_lsj), _ = weak_train_path(trainer, batches, dev, "mask")
+        del trainer, batches
+        torch.cuda.empty_cache()
+
+        # -- 26. the train entry point on the dataset, with an eval -----------------------
+        entry_point_run(data_root)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
-    # -- 24. result ---------------------------------------------------------
+    # -- 27. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
     k1_pd_f32 = bf16_launches["bf16_pd_f32"][0]
     k1_eval = sum(n for n, _ in eval_launches.values())
@@ -1518,8 +1752,9 @@ def main() -> int:
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
-        "launches": launches + k1_train + k1_pd_f32 + k1_eval,
-        "launches_by_path": {"serve": launches, "train": k1_train,
+        "launches": launches + k1_train + k1_pd_f32 + k1_eval + k1_weak + k1_mask_wo_lsj,
+        "launches_by_path": {"serve": launches, "train": k1_train, "train_weak": k1_weak,
+                             "train_wo_lsj": k1_mask_wo_lsj,
                              "serve_bf16_pixel_decoder_f32": k1_pd_f32,
                              **{f"eval_{r}": n for r, (n, _) in eval_launches.items() if n}},
         "eval_buckets": {str(b): row for (b, dt), row in k1_buckets.items() if dt == "f32"},
@@ -1534,8 +1769,9 @@ def main() -> int:
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_bwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:118",
-        "launches": k2_train,
-        "launches_by_path": {"serve": k2_serve, "train": k2_train, "train_bf16": 0},
+        "launches": k2_train + k2_weak + k2_mask_wo_lsj,
+        "launches_by_path": {"serve": k2_serve, "train": k2_train, "train_weak": k2_weak,
+                             "train_wo_lsj": k2_mask_wo_lsj, "train_bf16": 0},
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,

@@ -738,3 +738,122 @@ def test_eval_post_processing_on_the_card_matches_the_cpu():
     assert (sg != sc).float().mean().item() <= 1e-4
     assert torch.equal(pg["valid"], pc["valid"])
     assert (pg["panoptic_quidx"] != pc["panoptic_quidx"]).float().mean().item() <= 1e-4
+
+
+# the box-supervised preset at SMALL_CARD width; its pairwise warmup over one
+# step, so that the second step's pairwise loss counts, and the pseudo-mask
+# update on
+WEAK_CARD = {**SMALL_CARD, "model.loss.weak.pairwise.warmup_iters": 1,
+             "model.loss.weak.mask_update_enabled": True}
+
+
+def _weak_batch(dev, seed=0, B=2, size=512, G=4):
+    """Raw images of 64x64-pixel colour tiles with +-2 of noise (so that the
+    pairwise loss has similar neighbours), rectangle masks, the last target
+    of image 0 padding."""
+    rng = np.random.RandomState(seed)
+    tiles = rng.randint(0, 256, (B, size // 64, size // 64, 3))
+    images = tiles.repeat(64, 1).repeat(64, 2) + rng.uniform(-2, 2, (B, size, size, 3))
+    masks = np.zeros((B, G, size, size), np.float32)
+    for b in range(B):
+        for g in range(G):
+            y0, x0 = rng.randint(0, size // 2, 2)
+            masks[b, g, y0:y0 + rng.randint(32, size // 2), x0:x0 + rng.randint(32, size // 2)] = 1
+    valid = np.ones((B, G), bool)
+    valid[0, -1] = False
+    batch = {"images": images.astype(np.float32), "masks": masks * valid[:, :, None, None],
+             "labels": np.where(valid, rng.randint(0, 80, (B, G)), -1), "valid": valid}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _weak_trainer(dev, over=None):
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(get_config("coco_instance_r50_wo_lsj_projpair",
+                                 {**WEAK_CARD, **(over or {})}), device=dev, seed=0)
+    perturb_deformable(trainer.model)
+    return trainer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weak_train_step_is_bitwise_repeatable(dtype):
+    """Two trainers of the box-supervised preset from one seed end two steps
+    (the second with the pairwise loss on) with the same bits in every
+    parameter, buffer and AdamW moment, with no global deterministic mode."""
+    dev = require_cuda()
+    over = {} if dtype == "float32" else {"model.dtype": "bfloat16",
+                                          "model.pixel_decoder_f32": False}
+    batches = [_weak_batch(dev, seed=s) for s in (0, 1)]
+    states = []
+    for _ in range(2):
+        trainer = _weak_trainer(dev, over)
+        metrics = [trainer.step(b) for b in batches]
+        torch.cuda.synchronize()
+        assert metrics[1]["loss_pairwise"].item() > 0
+        sd = trainer.state_dict()
+        states.append({**{f"model.{k}": v for k, v in sd["model"].items()},
+                       **{f"{m}.{k}": v for m in ("mu", "nu")
+                          for k, v in sd["optimizer"][m].items()}})
+    differing = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+    assert not differing, differing[:8]
+
+
+@pytest.mark.cuda
+def test_weak_train_step_launches_k1_and_k2_per_encoder_layer():
+    """A box-supervised step launches K1 and K2 once per encoder layer (6
+    each), none on a bf16 value, and its gradient reaches every encoder
+    layer's deformable projections."""
+    dev = require_cuda()
+    trainer = _weak_trainer(dev)
+    batch = _weak_batch(dev)
+    trainer.step(batch)
+    before = (ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches,
+              ms_deform_attn_cuda.launches_bf16, ms_deform_attn_bwd_cuda.launches_bf16)
+    metrics = trainer.step(batch)
+    torch.cuda.synchronize()
+    after = (ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches,
+             ms_deform_attn_cuda.launches_bf16, ms_deform_attn_bwd_cuda.launches_bf16)
+    assert tuple(a - b for a, b in zip(after, before)) == (6, 6, 0, 0)
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert metrics["loss_pairwise"].item() > 0 and metrics["loss_mask_projection"].item() > 0
+    for layer in trainer.model.sem_seg_head.pixel_decoder.transformer.encoder.layers:
+        for name in ("value_proj", "sampling_offsets", "attention_weights"):
+            assert getattr(layer.self_attn, name).weight.grad.abs().sum() > 0, name
+
+
+@pytest.mark.cuda
+def test_weak_loss_gradients_match_plain_path(no_tf32):
+    """The box-supervised loss and every parameter's gradient at the pairwise
+    warmup's end, three ways on the same weights and batch: K1 + K2 (A), K1
+    + the closed-form plain backward (C), and the plain deformable path (B).
+    A-C, K2 against the plain backward on the same forward: every gradient
+    within a norm-relative 1e-5 (chip_smoke.py's SAME_FORWARD_REL; read
+    5e-7 to 1.4e-6 on the mask step). A-B, the whole path: the loss to
+    rtol 1e-4 and all gradients together within a norm-relative 1e-3. K1
+    and the plain forward round apart, which moves a few samples across a
+    pixel-centre line, where the bilinear derivative jumps: at this small
+    width one parameter alone (layer 0's sampling offsets) read 1.1e-3 on
+    an H100, where chip_smoke.py's full-width weak step reads 9.9e-5."""
+    from unittest import mock
+
+    dev = require_cuda()
+    trainer = _weak_trainer(dev)
+    trainer.optimizer.count = 1  # pairwise warmup 1
+    batch = _weak_batch(dev, seed=2)
+    names, params = zip(*trainer.model.named_parameters())
+    res = {}
+    for run, impl, bwd in (("A", "auto", None), ("C", "auto", ms_deform_attn_bwd_plain),
+                           ("B", "plain", None)):
+        with mock.patch.object(deform_attn, "ms_deform_attn_bwd_cuda",
+                               bwd or deform_attn.ms_deform_attn_bwd_cuda):
+            total, losses = trainer.loss(batch, deform_impl=impl)
+            grads = torch.autograd.grad(total, params)
+        res[run] = (total.item(), losses["loss_pairwise"].item(), grads)
+    (la, pa, ga), (_, _, gc), (lb, _, gb) = res["A"], res["C"], res["B"]
+    assert pa > 0 and np.isfinite(la) and abs(la - lb) <= 1e-4 * abs(lb)
+    for name, a, c in zip(names, ga, gc):
+        assert (a - c).norm() <= 1e-5 * c.norm(), name
+    flat_a, flat_b = (torch.cat([g.reshape(-1) for g in gs]) for gs in (ga, gb))
+    assert (flat_a - flat_b).norm() <= 1e-3 * flat_b.norm()

@@ -150,6 +150,15 @@ def test_make_assign_fn_refuses_an_unknown_matcher():
         make_assign_fn(_cfg("hungarian"))
 
 
+def test_host_lap_refuses_more_targets_than_queries():
+    """With G > Q the native solver does not return: the host solve raises
+    before calling it (a preset's input.max_instances above its
+    num_queries)."""
+    with pytest.raises(ValueError, match="100 targets but 10 queries"):
+        hungarian.assign(torch.rand(2, 10, 100))
+    assert hungarian.assign(torch.rand(2, 100, 10)).shape == (2, 10)
+
+
 def test_host_lap_raises_without_a_compiler(tmp_path, monkeypatch):
     """No fallback to scipy (it breaks ties otherwise): with no library
     built and no host compiler, the host solve raises and names it."""

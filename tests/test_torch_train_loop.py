@@ -175,18 +175,12 @@ def test_checkpointer_keeps_the_newest_and_restores_bitwise(tmp_path):
                        trainer.model.sem_seg_head.predictor.class_embed.weight)
 
 
-def test_loop_refuses_an_eval_dataset(tmp_path):
-    cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_train_loop(cfg, None, iter(()), {}, None, None, [], eval_dataset="coco_2017_val")
-
-
 def test_entry_point_trains_saves_and_resumes(tmp_path, capsys):
-    """`python -m bm2f_tpu_torch.train --max-iter 2`, then `--resume
-    --max-iter 3`: checkpoints at 1, 2 and 3, the JSON lines of every
-    step, and the resumed run starting from 2."""
-    args = ["--device", "cpu", "--size", "64", "--batch", "2", "--instances", "3",
-            "--output", str(tmp_path)]
+    """`python -m bm2f_tpu_torch.train --synthetic --max-iter 2`, then
+    `--resume --max-iter 3`: checkpoints at 1, 2 and 3, the JSON lines of
+    every step, and the resumed run starting from 2."""
+    args = ["--device", "cpu", "--synthetic", "--size", "64", "--batch", "2",
+            "--instances", "3", "--output", str(tmp_path)]
     for k, v in {**TINY, "train.log_period": 1, "train.checkpoint_period": 1}.items():
         args += ["--set", f"{k}={v!r}"]
     assert train_main.main(args + ["--max-iter", "2"]) == 0
