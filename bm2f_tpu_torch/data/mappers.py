@@ -7,8 +7,8 @@ Reference equivalents (mask2former/data/dataset_mappers/*.py):
 - MaskFormerPanopticDatasetMapper                   -> `mask_former_panoptic`
 - MaskFormerInstanceDatasetMapper                   -> `mask_former_instance`
 
-The port's copy of the JAX package's mappers (numpy and Pillow; the video
-mappers are not ported yet). Every mapper emits static shapes — image
+The port's copy of the JAX package's mappers (numpy and Pillow); the video
+mappers (`ytvis`, `ytvis_with_feats`, `coco_clip`) live in `data/ytvis.py`. Every mapper emits static shapes — image
 (S, S, 3) or pad-to-divisibility buckets, targets padded to
 `max_instances` with a validity mask — as the JAX train step needs, and
 the port's eval pads to the same buckets.
@@ -359,26 +359,27 @@ class EvalMapper:
         }
 
 
-class _NotPorted:
-    """A mapper of the JAX package that the port has not brought yet."""
+class _LazyMappers(dict):
+    """The video mappers resolve on first use: `data/ytvis.py` imports this
+    module."""
 
-    def __init__(self, name: str):
-        self.name = name
+    def __missing__(self, key):
+        from bm2f_tpu_torch.data.ytvis import (
+            CocoClipDatasetMapper,
+            YTVISDatasetMapper,
+            YTVISDatasetWithFeatsMapper,
+        )
 
-    def __call__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"mapper {self.name!r}: the video data layer (data/ytvis.py) is "
-            "ROADMAP queue 1 item 18")
+        self.update({"ytvis": YTVISDatasetMapper,
+                     "ytvis_with_feats": YTVISDatasetWithFeatsMapper,
+                     "coco_clip": CocoClipDatasetMapper})
+        return dict.__getitem__(self, key)
 
 
-MAPPERS = {
+MAPPERS = _LazyMappers({
     "coco_instance_lsj": COCOInstanceLSJMapper,
     "coco_panoptic_lsj": COCOPanopticLSJMapper,
     "mask_former_semantic": MaskFormerSemanticMapper,
     "mask_former_panoptic": MaskFormerPanopticMapper,
     "mask_former_instance": MaskFormerInstanceMapper,
-    # the JAX package's video mappers (bm2f_tpu/data/mappers.py:378)
-    "ytvis": _NotPorted("ytvis"),
-    "ytvis_with_feats": _NotPorted("ytvis_with_feats"),
-    "coco_clip": _NotPorted("coco_clip"),
-}
+})

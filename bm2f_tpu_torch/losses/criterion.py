@@ -53,17 +53,20 @@ class SetCriterionConfig:
 
 
 def draw_points(cfg: SetCriterionConfig, n_layers: int, batch: int,
-                generator: torch.Generator) -> Dict[str, torch.Tensor]:
+                generator: torch.Generator, frames: int = 1) -> Dict[str, torch.Tensor]:
     """Uniform [0, 1) (x, y) points on the generator's device, per layer and
     image: "match" (L, B, num_points, 2) for the matcher costs, "cand"
-    (L, B, n_candidates, 2) and "rand" (L, B, num_points - n_importance, 2)
-    for the mask losses."""
+    (L, B * frames, n_candidates, 2) and "rand" (L, B * frames, num_points -
+    n_importance, 2) for the mask losses. A clip's matcher points are shared
+    by its frames; its loss points are drawn per frame (`frames` = T, as the
+    video criterion takes them)."""
     dev = generator.device
     n_rand = cfg.num_points - cfg.n_importance
     return {
-        name: torch.rand((n_layers, batch, n, 2), generator=generator, device=dev)
-        for name, n in (("match", cfg.num_points), ("cand", cfg.n_candidates),
-                        ("rand", n_rand))
+        name: torch.rand((n_layers, b, n, 2), generator=generator, device=dev)
+        for name, b, n in (("match", batch, cfg.num_points),
+                           ("cand", batch * frames, cfg.n_candidates),
+                           ("rand", batch * frames, n_rand))
     }
 
 
@@ -116,10 +119,18 @@ def _loss_masks(pred_masks, tgt_nhwc, tgt_valid, assignment, num_masks, cfg,
     G = tgt_valid.shape[1]
     src = torch.gather(pred_masks, 1,
                        assignment[:, :, None, None].expand(B, G, h, w)).float()
-    src_nhwc = src.permute(0, 2, 3, 1)
-    valid = tgt_valid.reshape(B * G).float()
+    return point_mask_losses(src.permute(0, 2, 3, 1), tgt_nhwc,
+                             tgt_valid.reshape(B * G).float(), num_masks, cfg, cand, randc)
 
-    pred_c = point_sample(src_nhwc, cand)  # (B, n_cand, G)
+
+def point_mask_losses(src_nhwc, tgt_nhwc, valid, num_masks, cfg, cand, randc):
+    """The sigmoid CE and dice losses of the matched mask logits `src_nhwc`
+    (N, h, w, G) against the targets `tgt_nhwc` (N, Hg, Wg, G), on the
+    candidate points `cand` (N, n_cand, 2) (the most uncertain
+    `cfg.n_importance` of them) and the random points `randc` (N, n_rand,
+    2) of each of the N images; `valid` (N * G,) weights each mask; each
+    loss is summed over the masks and divided by `num_masks`."""
+    pred_c = point_sample(src_nhwc, cand)  # (N, n_cand, G)
     with torch.no_grad():
         tgt_c = point_sample(tgt_nhwc, cand)
     w_sel = _importance_weights(pred_c, cfg.n_importance)
@@ -131,8 +142,8 @@ def _loss_masks(pred_masks, tgt_nhwc, tgt_valid, assignment, num_masks, cfg,
         ce_r, p_r, pt_r, t_r = _masked_sums(pred_r, tgt_r, 1.0)
         ce_s, p_s, pt_s, t_s = ce_s + ce_r, p_s + p_r, pt_s + pt_r, t_s + t_r
 
-    ce_per_mask = (ce_s / cfg.num_points).reshape(B * G) * valid
-    dice_per_mask = (1.0 - (2.0 * pt_s + 1.0) / (p_s + t_s + 1.0)).reshape(B * G) * valid
+    ce_per_mask = (ce_s / cfg.num_points).reshape(-1) * valid
+    dice_per_mask = (1.0 - (2.0 * pt_s + 1.0) / (p_s + t_s + 1.0)).reshape(-1) * valid
     return ce_per_mask.sum() / num_masks, dice_per_mask.sum() / num_masks
 
 

@@ -64,6 +64,8 @@ class MaskFormerHead(nn.Module):
     """Pixel decoder + transformer predictor (reference:
     modeling/meta_arch/mask_former_head.py:115-132)."""
 
+    predictor_cls = MultiScaleMaskedTransformerDecoder
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         dtype = DTYPES[cfg.dtype]
@@ -71,7 +73,7 @@ class MaskFormerHead(nn.Module):
             cfg.pixel_decoder, RESNET_FEATURE_CHANNELS, RESNET_FEATURE_STRIDES,
             dtype=torch.float32 if cfg.pixel_decoder_f32 else dtype)
         C = cfg.pixel_decoder.conv_dim
-        self.predictor = MultiScaleMaskedTransformerDecoder(
+        self.predictor = self.predictor_cls(
             cfg.decoder, cfg.num_classes, [C] * cfg.decoder.num_feature_levels,
             dtype=dtype)
 
@@ -86,6 +88,8 @@ class MaskFormer(nn.Module):
     """Backbone + head. Input: normalized (B, H, W, 3) with H, W divisible by
     `cfg.size_divisibility`. Output keys and shapes as the JAX model's."""
 
+    head_cls = MaskFormerHead
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         _check_supported(cfg)
@@ -93,7 +97,7 @@ class MaskFormer(nn.Module):
         self.backbone = ResNet(cfg.backbone.resnet.depth,
                                cfg.backbone.resnet.out_features,
                                dtype=DTYPES[cfg.dtype])
-        self.sem_seg_head = MaskFormerHead(cfg)
+        self.sem_seg_head = self.head_cls(cfg)
 
     def forward(self, images: torch.Tensor,
                 deform_impl: str = "auto") -> Dict[str, torch.Tensor]:

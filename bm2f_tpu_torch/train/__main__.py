@@ -15,14 +15,22 @@ loop dispatches no per-step synchronise; the console, JSON
 (`<output>/metrics.json`) and TensorBoard writers run every
 `train.log_period` steps; a checkpoint goes under `<output>/checkpoints`
 every `train.checkpoint_period` steps and at the end; with
-`--eval-dataset`, `run_eval` runs every `train.eval_period` steps before
-the last and its metrics go to the writers as `eval/<key>` at that
-iteration. `--resume` continues from the latest checkpoint there (the
-dataset's stream starts again from its seed, as in JAX). `--eval-only`
+`--eval-dataset`, `run_eval` (track AP, `run_video_eval`, for a video
+config) runs every `train.eval_period` steps before the last and its
+metrics go to the writers as `eval/<key>` at that iteration. `--resume`
+continues from the latest checkpoint there (the dataset's stream starts
+again from its seed, as in JAX). `--eval-only`
 evaluates the model (after `--resume`, the latest checkpoint's) on
 `--eval-dataset`, else `--dataset`, and prints its metrics. Box-supervised
 training is the config's `model.loss.sup_type` (the `*_proj` and
 `*_projpair` presets).
+
+Video training is a `ytvis*` preset on a YouTube-VIS split (`data/ytvis.py`
+registers them under the same root): clips of `input.sampling_frame_num`
+frames through the `ytvis` mapper, or, when the sup_type holds the temporal
+pairwise loss, through `ytvis_with_feats` as root train.py:198-201 builds
+it: without a features root, so that its DINO grids are zeros (said once in
+the log) and the temporal pairs come from ties, as in the JAX package.
 
 `--synthetic` trains in the loop on seeded synthetic batches in the JAX
 bench's recipe (`trainer.synthetic_batch`, `--batch`, `--size`,
@@ -93,7 +101,14 @@ def train_loader(cfg, args, start: int):
     from bm2f_tpu_torch.data import build_train_loader
     from bm2f_tpu_torch.data.mappers import MAPPERS
 
-    mapper = MAPPERS[cfg.input.dataset_mapper](cfg.input, seed=cfg.train.seed)
+    name = cfg.input.dataset_mapper
+    if cfg.task == "video" and "temporal_pairwise" in cfg.model.loss.sup_type:
+        name = "ytvis_with_feats"
+        logging.getLogger(__name__).warning(
+            "the temporal pairwise loss runs on zero DINO features: the "
+            "ytvis_with_feats mapper is given no features root, as in the JAX "
+            "train.py, so the temporal pairs come from ties")
+    mapper = MAPPERS[name](cfg.input, seed=cfg.train.seed)
     return build_train_loader(args.dataset, mapper, cfg.train.ims_per_batch,
                               seed=cfg.train.seed)
 
@@ -166,9 +181,11 @@ def main(argv=None) -> int:
     if looped:
         from bm2f_tpu_torch.data.cityscapes import register_all_cityscapes
         from bm2f_tpu_torch.data.datasets import register_all_builtin_datasets
+        from bm2f_tpu_torch.data.ytvis import register_all_ytvis
 
         register_all_builtin_datasets(args.data_root or None, force=bool(args.data_root))
         register_all_cityscapes(args.data_root or None)
+        register_all_ytvis(args.data_root or None, force=bool(args.data_root))
 
     cfg = get_config(args.config, dict(args.set))
     if args.max_iter:

@@ -27,8 +27,9 @@ from bm2f_tpu_torch.train.trainer import synthetic_batch
 
 # how many dispatched-but-unpulled steps may be in flight (train.py:37)
 ASYNC_DEPTH = 4
-# the batch keys the step reads
-BATCH_KEYS = ("images", "labels", "masks", "valid")
+# the batch keys the step reads ("dino_feats" only where the mapper gives
+# them: the temporal pairwise loss's DINO patch features)
+BATCH_KEYS = ("images", "labels", "masks", "valid", "dino_feats")
 
 
 def to_device(batch: Mapping[str, object], device: torch.device) -> dict:
@@ -36,7 +37,7 @@ def to_device(batch: Mapping[str, object], device: torch.device) -> dict:
     `device`; from pinned memory and without blocking on the card, so that
     the copy overlaps the step in flight."""
     out = {}
-    for k in BATCH_KEYS:
+    for k in (k for k in BATCH_KEYS if k in batch):
         t = torch.as_tensor(batch[k])
         if device.type == "cuda":
             t = t.pin_memory()
@@ -46,14 +47,19 @@ def to_device(batch: Mapping[str, object], device: torch.device) -> dict:
 
 def dispatch_eval(cfg, model, dataset: str) -> Dict[str, float]:
     """`eval.run_eval` of `model` on `dataset` (the evaluator its metadata
-    names), with the model in eval mode for the pass and back in train mode
-    after. Draws from no generator of the trainer and touches no optimizer
-    state, so that an eval mid-run leaves the training result as it was."""
-    from bm2f_tpu_torch.eval import run_eval
+    names), or `eval_video.run_video_eval` (track AP) for a video config, as
+    root train.py:230-234 dispatches; with the model in eval mode for the
+    pass and back in train mode after. Draws from no generator of the
+    trainer and touches no optimizer state, so that an eval mid-run leaves
+    the training result as it was."""
+    if cfg.task == "video":
+        from bm2f_tpu_torch.eval_video import run_video_eval as run
+    else:
+        from bm2f_tpu_torch.eval import run_eval as run
 
     model.eval()
     try:
-        return run_eval(cfg, model, dataset)
+        return run(cfg, model, dataset)
     finally:
         model.train()
 

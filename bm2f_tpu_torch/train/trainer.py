@@ -1,10 +1,17 @@
 """The train step on one device: the counterpart of the JAX package's
-`make_train_step` / `Trainer` (bm2f_tpu/train/trainer.py:36-152) for image
-training, dispatched on `model.loss.sup_type` as the JAX `compute_loss` is:
+`make_train_step` / `Trainer` (bm2f_tpu/train/trainer.py:36-167), dispatched
+on `task` and `model.loss.sup_type` as the JAX `compute_loss` is. Images:
 "mask" (`losses.criterion.set_criterion`), and the box-supervised
 "mask_projection" and "mask_projection_and_pairwise"
 (`losses.weaksup_criterion.weaksup_set_criterion` on targets built from the
-batch's raw images and box masks, `losses.target_prep`).
+batch's raw images and box masks, `losses.target_prep`). Video (`task`
+"video", the clip model `video.build_video_model` on (B, T, H, W, 3)
+batches): "mask" (`losses.video_criterion.video_set_criterion`), and
+"mask_projection", "mask_projection_and_spatial_pairwise" and
+"mask_projection_and_spatial_pairwise_and_temporal_pairwise"
+(`losses.weaksup_video.video_weaksup_set_criterion` on
+`target_prep.build_video_weaksup_targets`, the temporal pairs from the
+batch's "dino_feats" when it has them).
 
 A step is: forward, matcher costs, the assignment (`train.matcher`:
 `matching.hungarian.make_assign_fn`), losses, backward, clip + AdamW. It
@@ -37,18 +44,26 @@ import torch
 
 from bm2f_tpu_torch.config import Config
 from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, draw_points, set_criterion
-from bm2f_tpu_torch.losses.target_prep import build_weaksup_targets
+from bm2f_tpu_torch.losses.target_prep import (
+    build_video_weaksup_targets,
+    build_weaksup_targets,
+)
+from bm2f_tpu_torch.losses.video_criterion import video_set_criterion
 from bm2f_tpu_torch.losses.weaksup import mask_update_pix_thr, pairwise_warmup_factor
 from bm2f_tpu_torch.losses.weaksup_criterion import weaksup_set_criterion
+from bm2f_tpu_torch.losses.weaksup_video import video_weaksup_set_criterion
 from bm2f_tpu_torch.matching.hungarian import make_assign_fn
 from bm2f_tpu_torch.models.maskformer import build_model, normalize_images
+from bm2f_tpu_torch.video import build_video_model
 from bm2f_tpu_torch.train.optim import AdamW
 from bm2f_tpu_torch.utils.precision import deterministic_scope, f32_scope
 
 log = logging.getLogger(__name__)
 
-# the image values of `model.loss.sup_type` (config.LossConfig)
+# the values of `model.loss.sup_type` (config.LossConfig) for each task
 IMAGE_SUP_TYPES = ("mask", "mask_projection", "mask_projection_and_pairwise")
+VIDEO_SUP_TYPES = ("mask", "mask_projection", "mask_projection_and_spatial_pairwise",
+                   "mask_projection_and_spatial_pairwise_and_temporal_pairwise")
 
 
 def criterion_config(cfg: Config) -> SetCriterionConfig:
@@ -66,13 +81,10 @@ def criterion_config(cfg: Config) -> SetCriterionConfig:
 
 
 def _check_trainable(cfg: Config) -> None:
-    """Branches of the JAX train step that later slices of the port bring."""
     sup = cfg.model.loss.sup_type
-    if cfg.task == "video" or sup not in IMAGE_SUP_TYPES:
-        raise NotImplementedError(
-            f"video training (task {cfg.task!r}, sup_type {sup!r}): ROADMAP queue 1 "
-            "item 18 (video criterion) and, for a weak sup_type, item 19's video half "
-            "(temporal pairs, spatial and temporal pairwise losses)")
+    known = VIDEO_SUP_TYPES if cfg.task == "video" else IMAGE_SUP_TYPES
+    if sup not in known:
+        raise ValueError(f"sup_type {sup!r} for task {cfg.task!r}: one of {known}")
 
 
 def synthetic_batch(batch: int, size: int, instances: int, seed: int,
@@ -121,16 +133,19 @@ class StageTimer:
 
 
 class Trainer:
-    """Image training on one device, mask- or box-supervised. The model is
-    drawn from `seed` (`build_model`); the mask criterion's random points
-    come from a `torch.Generator` on `device` seeded with `seed` (the weak
-    criterion draws none)."""
+    """Image or video training on one device, mask- or box-supervised. The
+    model is drawn from `seed` (`build_model`, or `build_video_model` for
+    task "video"); the mask criterion's random points come from a
+    `torch.Generator` on `device` seeded with `seed` (the weak criteria draw
+    none)."""
 
     def __init__(self, cfg: Config, device="cuda", seed: int = 0):
         _check_trainable(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
-        self.model = build_model(cfg, device=self.device, seed=seed).train()
+        self.video = cfg.task == "video"
+        build = build_video_model if self.video else build_model
+        self.model = build(cfg, device=self.device, seed=seed).train()
         self.ccfg = criterion_config(cfg)
         self.assign_fn = make_assign_fn(cfg)
         self.optimizer = AdamW(self.model, cfg.train.optimizer)
@@ -172,16 +187,34 @@ class Trainer:
         plain deformable attention (a parity reference for the kernels).
         The weak criterion's pairwise warmup and pixel threshold are read at
         `step_count`, before the step's update, as JAX reads `state.step`."""
-        out = self.model(normalize_images(batch["images"], self.cfg.model), deform_impl)
+        x = normalize_images(batch["images"], self.cfg.model)
+        out = self.model(x, deform_impl=deform_impl)
         if mark is not None:
             mark("forward")
         if self.cfg.model.loss.sup_type != "mask":
-            return self._weak_loss(out, batch, mark)
+            weak_loss = self._weak_video_loss if self.video else self._weak_loss
+            return weak_loss(out, batch, mark)
+        frames = out["pred_masks"].shape[2] if self.video else 1
         if points is None:
             points = draw_points(self.ccfg, out["aux_logits"].shape[0] + 1,
-                                 out["pred_logits"].shape[0], self.generator)
+                                 out["pred_logits"].shape[0], self.generator, frames)
         targets = {k: batch[k] for k in ("labels", "masks", "valid")}
-        return set_criterion(out, targets, self.ccfg, points, mark, self.assign_fn)
+        criterion = video_set_criterion if self.video else set_criterion
+        return criterion(out, targets, self.ccfg, points, mark, self.assign_fn)
+
+    def _weak_video_loss(self, out, batch, mark):
+        lc, weak = self.cfg.model.loss, self.cfg.model.loss.weak
+        pw = weak.pairwise
+        targets = build_video_weaksup_targets(
+            batch["images"], batch["labels"], batch["masks"], batch["valid"],
+            batch.get("dino_feats"), kernel_size=pw.size, dilation=pw.dilation)
+        return video_weaksup_set_criterion(
+            out, targets, self.ccfg, sup_type=lc.sup_type,
+            projection_weight=weak.projection_weight, pairwise_weight=weak.pairwise_weight,
+            temporal_pairwise_weight=weak.temporal_pairwise_weight,
+            color_thresh=pw.color_thresh, kernel_size=pw.size, dilation=pw.dilation,
+            warmup_factor=pairwise_warmup_factor(self.step_count, pw.warmup_iters),
+            assign_fn=self.assign_fn, mark=mark)
 
     def _weak_loss(self, out, batch, mark):
         lc, weak = self.cfg.model.loss, self.cfg.model.loss.weak

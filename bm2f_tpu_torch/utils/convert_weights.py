@@ -9,7 +9,11 @@
   inverse of the JAX package's `utils/convert_weights.py`:
   HWIO -> OIHW, (in, out) -> (out, in), packed in_proj (C, 3C) -> (3C, C),
   scan-stacked layers unstacked, and 0-indexed `adapter_{i}`/`layer_{i}` to
-  detectron2's `adapter_{i+1}`/`layer_{i+1}`.
+  detectron2's `adapter_{i+1}`/`layer_{i+1}`. The JAX video model's tree
+  (its head's parts named `sem_seg_head_pixel_decoder` and
+  `sem_seg_head_predictor`, its decoder scanned in `rounds` or unrolled)
+  maps onto the same keys: the port's video model carries the image
+  model's names.
 - `load_weights`: any of those on disk, or a checkpoint directory of the
   port, by what the path holds.
 """
@@ -104,6 +108,10 @@ _DIRECT = {
 }
 
 
+# the JAX video model's names for its head's two parts
+_VIDEO_HEAD = {"sem_seg_head_pixel_decoder": _PD, "sem_seg_head_predictor": _PR}
+
+
 def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     for k, v in tree.items():
         path = f"{prefix}/{k}" if prefix else str(k)
@@ -168,6 +176,8 @@ def jax_tree_to_numpy(variables: Mapping, n_levels: int = 3) -> Dict[str, np.nda
     out: Dict[str, np.ndarray] = {}
     for coll, frozen in (("params", False), ("frozen", True)):
         for path, value in _flatten(variables.get(coll, {})):
+            head, sep, rest = path.partition("/")
+            path = _VIDEO_HEAD.get(head, head) + sep + rest
             for key, v in _convert_leaf(path, value, frozen, n_levels):
                 if key in out:
                     raise KeyError(f"two JAX leaves map to {key!r}")
@@ -177,8 +187,9 @@ def jax_tree_to_numpy(variables: Mapping, n_levels: int = 3) -> Dict[str, np.nda
 
 def jax_variables_to_state_dict(variables: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """JAX {"params", "frozen"} tree (numpy leaves) -> port `state_dict` for
-    the model `build_model(cfg)` builds. Raises on a leaf that maps nowhere,
-    a port key no leaf fills, or a shape mismatch."""
+    the model `build_model(cfg)` builds, or `build_video_model(cfg)` (the
+    same keys). Raises on a leaf that maps nowhere, a port key no leaf
+    fills, or a shape mismatch."""
     from bm2f_tpu_torch.models.maskformer import MaskFormer
 
     model_cfg = getattr(cfg, "model", cfg)

@@ -114,7 +114,51 @@ Phases, each printing its own line:
      split (B=2, an eval and a checkpoint every 2 steps): the loss scalars
      and eval/ metrics in metrics.json at iteration 2, checkpoints at 2 and
      4, then `--eval-only --resume` on the checkpoint at 4;
- 27. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
+ 27. the video data: a seeded synthetic YouTube-VIS split
+     (`bm2f_tpu_torch.data.synthetic.write_synthetic_ytvis`: 1280x720 JPEG
+     frames, per-frame RLE with null where an object is absent, a crowd
+     track a video), `ytvis_2019_val` of 3 videos of 5, 19 and 36 frames
+     (the eval's 8, 24 and 40 frame buckets, all at its 640 spatial bucket)
+     and `ytvis_2021_train` with a DINO grid (26x46x384) a frame whose
+     patches keep their feature as the objects move, registered;
+ 28. the video eval: `bm2f_tpu_torch.eval_video.run_video_eval` on
+     `ytvis2019_video_r50` at full width with seeded random weights, twice
+     (the first clip of each (frames, size) bucket, then warm), every count
+     set to 0 just before and read just after (K1 6 launches a clip, over
+     its Tp frames); AP, warm frames per second, the first clip of each
+     bucket apart, peak memory; then the ground truth as predictions, which
+     must score AP 100 exactly;
+ 29. padding on the card: the 5-frame clip at its true length against the
+     same clip padded to its 8-frame bucket with `frame_valid`, logits and
+     masks within the forward's card tolerance;
+ 30. K1 at the video eval shapes (Tp 8 and 40 at S 640, on the first encoder
+     layer's inputs of a clip of each) and K2 at the video train shape (2
+     clips x 2 frames at 512x512, encoder-like inputs as phase 7's), each
+     against its plain version (K2 bitwise across runs and tile orders),
+     timed beside it and its bound;
+ 31. video training (first K2 on a video batch's first-layer inputs against
+     an f64 backward, beside the plain f32 backward's error): `Trainer` on
+     `ytvis2021_video_r50` (masks) and on
+     `ytvis2021_video_r50_proj_spatpair_temppair` (boxes, spatial and
+     temporal pairwise losses, the pairwise warmup over 1 step), B=2 clips
+     of 2 frames at 512x512, G=100, on batches of phase 27's train split
+     through the ported mappers (`ytvis`; `ytvis_with_feats` with the
+     synthetic DINO grids' root) and `build_train_loader`: one warm-up step
+     and 3 timed steps with every count set to 0 just before and read just
+     after (K1 and K2 6 launches a step); finite losses, nonzero
+     projection, spatial and temporal pairwise losses, nonzero gradients of
+     every encoder layer's deformable projections, the split by stage and
+     peak memory;
+ 32. the weak video step's loss and every gradient through the kernels
+     against the plain path (K2 against the plain backward on the same
+     forward, and the whole path), and two trainers from one seed ending two
+     steps with the same bits;
+ 33. the train entry point as a subprocess on the card: `python -m
+     bm2f_tpu_torch.train --config ytvis2021_video_r50_proj_spatpair_temppair
+     --dataset ytvis_2021_train --eval-dataset ytvis_2019_val --max-iter 2`
+     on phase 27's splits (an eval at step 1, a checkpoint at 2), then
+     `--eval-only --resume`, the eval at step 2;
+ 34. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
 
 Any failure raises and the script exits non-zero. It imports nothing of JAX
@@ -214,6 +258,19 @@ WEAK_OVER = {"train.ims_per_batch": 2, "model.loss.weak.pairwise.warmup_iters": 
              "model.loss.weak.mask_update_enabled": True}
 # the entry point's run (phase 26)
 ENTRY_CONFIG, ENTRY_ITERS, ENTRY_PERIOD = "coco_instance_r50_proj", 4, 2
+# the video slice (phases 27-33): the synthetic split's val lengths (the
+# eval's 8, 24 and 40 frame buckets), the eval's preset, the train presets
+# (masks, and boxes with both pairwise losses) at 2 clips a step with the
+# pairwise warmup over one step, and the buckets whose K1 rows the kernels
+# line carries
+VIDEO_LENGTHS = (5, 19, 36)
+VIDEO_CONFIG = "ytvis2019_video_r50"
+VIDEO_MASK_CONFIG = "ytvis2021_video_r50"
+VIDEO_WEAK_CONFIG = "ytvis2021_video_r50_proj_spatpair_temppair"
+VIDEO_OVER = {"train.ims_per_batch": 2, "model.loss.weak.pairwise.warmup_iters": 1}
+VIDEO_K1_FRAMES = (8, 40)
+VIDEO_WEAK_LOSSES = ("loss_mask_projection", "loss_mask_spatial_pairwise",
+                     "loss_mask_temporal_pairwise")
 # the probe: level sizes of every impl; CUDA-event launches
 PROBE_LEVELS, PROBE_ITERS = (625, 2500, 10000), 20
 # the probe's row of each kernel in the kernels line
@@ -1354,30 +1411,34 @@ def weak_batches(cfg, dev, n: int) -> list:
     return [to_device(next(loader), dev) for _ in range(n)]
 
 
-def make_weak_trainer(config, dev, seed=0):
-    """A full-width trainer of `config` with WEAK_OVER, deformable
-    projections perturbed as `make_trainer`'s."""
+def make_weak_trainer(config, dev, seed=0, over=None):
+    """A full-width trainer of `config` with `over` (WEAK_OVER when None),
+    deformable projections perturbed as `make_trainer`'s."""
     from bm2f_tpu_torch.config import get_config
     from bm2f_tpu_torch.tools.profile_request import perturb_deformable
     from bm2f_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(get_config(config, WEAK_OVER), device=dev, seed=seed)
+    trainer = Trainer(get_config(config, WEAK_OVER if over is None else over), device=dev,
+                      seed=seed)
     perturb_deformable(trainer.model)
     return trainer
 
 
-def weak_train_path(trainer, batches, dev, path: str):
-    """Phase 24: one warm-up step on batches[0], then a timed step on each
-    of the others, every count set to 0 just before and read just after.
-    Returns (K1, K2 launches over the timed steps, the median step ms)."""
+def weak_train_path(trainer, batches, dev, path: str, tag: str = "weak",
+                    nonzero=("loss_mask_projection", "loss_pairwise")):
+    """Phase 24 (and 31, with tag "video" and the video losses in
+    `nonzero`): one warm-up step on batches[0], then a timed step on each
+    of the others, every count set to 0 just before and read just after; a
+    weak step's `nonzero` losses must be > 0. Returns (K1, K2 launches over
+    the timed steps, the median step ms)."""
     from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
     from bm2f_tpu_torch.train.trainer import StageTimer
 
     t0 = time.perf_counter()
     trainer.step(batches[0])  # warm-up (cuDNN algorithm choice), not counted
     torch.cuda.synchronize()
-    b, g, h, w = batches[0]["masks"].shape
-    log("weak_setup", path=path, sup_type=trainer.cfg.model.loss.sup_type, batch=b,
+    (b, g), (h, w) = batches[0]["masks"].shape[:2], batches[0]["masks"].shape[-2:]
+    log(f"{tag}_setup", path=path, sup_type=trainer.cfg.model.loss.sup_type, batch=b,
         targets=g, canvas=f"{h}x{w}",
         valid_targets=int(sum(x["valid"].sum().item() for x in batches[1:])),
         seconds=f"{time.perf_counter() - t0:.2f}")
@@ -1397,10 +1458,9 @@ def weak_train_path(trainer, batches, dev, path: str):
             raise AssertionError(f"{path} step {i}: non-finite {bad}")
         final = {k: f"{v:.4f}" for k, v in metrics.items()
                  if k.startswith("loss_") and not k.rsplit("_", 1)[-1].isdigit()}
-        log("weak_step", path=path, step=i, total_loss=f"{metrics['total_loss']:.4f}",
+        log(f"{tag}_step", path=path, step=i, total_loss=f"{metrics['total_loss']:.4f}",
             **final, grad_norm=f"{metrics['grad_norm']:.4f}", step_ms=f"{step_ms[-1]:.2f}")
-        zero = [k for k in ("loss_mask_projection", "loss_pairwise")
-                if weak and not metrics[k] > 0]
+        zero = [k for k in nonzero if weak and not metrics[k] > 0]
         if zero:
             raise AssertionError(f"{path} step {i}: {zero} zero")
     n_steps = len(batches) - 1
@@ -1421,10 +1481,10 @@ def weak_train_path(trainer, batches, dev, path: str):
     if zero:
         raise AssertionError(f"{path}: no gradient reached encoder projections {zero}")
     median = statistics.median(step_ms)
-    log("weak_main", path=path, k1_launches=launches[0], k2_launches=launches[1],
+    log(f"{tag}_main", path=path, k1_launches=launches[0], k2_launches=launches[1],
         step_ms=" ".join(f"{v:.2f}" for v in step_ms), step_ms_median=f"{median:.2f}",
         peak_mem_gib=f"{peak:.2f}", min_encoder_grad_abs_sum=f"{min(grads.values()):.3e}")
-    log("weak_stages", path=path, **{k: f"{v / n_steps:.2f}ms" for k, v in timer.ms.items()})
+    log(f"{tag}_stages", path=path, **{k: f"{v / n_steps:.2f}ms" for k, v in timer.ms.items()})
     return launches, median
 
 
@@ -1459,20 +1519,20 @@ def weak_parity(trainer, batch, dev):
         raise AssertionError(f"weak gradients, kernel against plain: {bad[:5]}")
 
 
-def weak_repeats(batches, dev):
-    """Phase 25, second part: two trainers from one seed, two weak steps
-    each (the second with the pairwise warmup at 1), end with the same bits
-    in every parameter, buffer and moment."""
+def weak_repeats(batches, dev, config=WEAK_CONFIG, over=None):
+    """Phase 25 (and 32), second part: two trainers of `config` from one
+    seed, two weak steps each (the second with the pairwise warmup at 1),
+    end with the same bits in every parameter, buffer and moment."""
     states = []
     for _ in range(2):
-        trainer = make_weak_trainer(WEAK_CONFIG, dev)
+        trainer = make_weak_trainer(config, dev, over=over)
         for batch in batches[:2]:
             trainer.step(batch)
         torch.cuda.synchronize()
         states.append(trainer.state_dict())
         del trainer
     bad = _same_state(*states)
-    log("weak_repeat", steps=2, state_keys=len(states[0]["model"]),
+    log("weak_repeat", config=config, steps=2, state_keys=len(states[0]["model"]),
         differing=len(bad))
     if bad:
         raise AssertionError(f"two weak steps from one seed differ in {bad[:8]}")
@@ -1520,6 +1580,381 @@ def entry_point_run(data_root: str):
     log("entry_point", config=ENTRY_CONFIG, max_iter=ENTRY_ITERS, train_eval_s=f"{train_s:.2f}",
         eval_only_s=f"{eval_s:.2f}", checkpoints=steps,
         metrics_at_2=",".join(sorted(k for k in at[0] if k.startswith("eval/"))),
+        eval_only=repr({k: round(v, 3) for k, v in evals[0].items()}))
+    return train_s
+
+
+def write_video_dataset(out_dir: Path):
+    """Phase 27: the synthetic YouTube-VIS val and train splits under a new
+    directory of `out_dir`, registered. Returns (its root, the DINO grids'
+    root)."""
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.data.synthetic import DINO_GRID, YTVIS_TRAIN_LENGTHS, write_synthetic_ytvis
+    from bm2f_tpu_torch.data.ytvis import register_all_ytvis
+
+    out_dir.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_video_", dir=out_dir)
+    t0 = time.perf_counter()
+    write_synthetic_ytvis(root, "ytvis_2019_val", VIDEO_LENGTHS, seed=0)
+    feats_root = write_synthetic_ytvis(root, "ytvis_2021_train", YTVIS_TRAIN_LENGTHS, seed=1,
+                                       feats=True)
+    register_all_ytvis(root, force=True)
+    tracks = {n: sum(len(dd["annotations"]) for dd in DatasetCatalog.get(n))
+              for n in ("ytvis_2019_val", "ytvis_2021_train")}
+    log("video_data", root=root, val_lengths=VIDEO_LENGTHS, train_lengths=YTVIS_TRAIN_LENGTHS,
+        frame_size="1280x720", dino_grid="x".join(map(str, DINO_GRID)), tracks=tracks,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    return root, feats_root
+
+
+def make_video_model():
+    """The full-width eval model of VIDEO_CONFIG from seed 0, its deformable
+    projections perturbed as phase 5's, weights cast once for inference."""
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.video import build_video_model
+
+    cfg = get_config(VIDEO_CONFIG)
+    model = build_video_model(cfg, device="cuda", seed=0)
+    perturb_deformable(model)
+    return cfg, model.cast_weights_for_inference_()
+
+
+def video_eval_path(cfg, model):
+    """Phase 28: `run_video_eval` on ytvis_2019_val twice, every count set to
+    0 before and read after. Returns (K1 launches, the metrics)."""
+    from bm2f_tpu_torch import eval_video
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+
+    n_videos = len(DatasetCatalog.get("ytvis_2019_val"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    passes = []
+    for _ in range(2):
+        timings = []
+        t0 = time.perf_counter()
+        res = eval_video.run_video_eval(cfg, model, "ytvis_2019_val", timings=timings)
+        passes.append((res, timings, time.perf_counter() - t0))
+    launches = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)
+    n_layers = len(model.sem_seg_head.pixel_decoder.transformer.encoder.layers)  # 6
+    if launches != (n_layers * 2 * n_videos, 0):
+        raise AssertionError(f"video eval: K1 f32, bf16 launches {launches} for 2 x {n_videos} "
+                             f"clips, expected {n_layers * 2 * n_videos} and 0")
+    (res, first, wall), (res2, warm, _) = passes
+    bad = {k: v for k, v in res.items() if not 0.0 <= float(v) <= 100.0}
+    if bad or len(first) != n_videos:
+        raise AssertionError(f"video eval: {len(first)} clips, metrics {res}")
+    frames = sum(t["T"] for t in warm)
+    log("video_eval", config=VIDEO_CONFIG, videos=n_videos,
+        metrics=" ".join(f"{k}={float(v):.4f}" for k, v in res.items()),
+        second_pass_AP=f"{float(res2['AP']):.4f}",
+        warm_frames_per_s=f"{1e3 * frames / sum(t['ms'] for t in warm):.3f}",
+        **{f"first_T{t['T']}_Tp{t['frames']}_S{t['size']}_ms": f"{t['ms']:.2f}" for t in first},
+        **{f"warm_T{t['T']}_ms": f"{t['ms']:.2f}/load {t['load_ms']:.2f}/predict "
+                                 f"{t['predict_ms']:.2f}" for t in warm},
+        k1_launches_per_clip=f"{launches[0] / (2 * n_videos):.1f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        first_pass_wall_s=f"{wall:.2f}")
+    return launches[0], res
+
+
+def video_gt_oracle(cfg):
+    """Phase 28, second part: the val split's tracks as predictions (crowd
+    tracks left out: they are ignored) score AP 100."""
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.data.mask_ops import segmentation_to_mask
+    from bm2f_tpu_torch.evaluation.ytvis_eval import YTVISEvaluator
+
+    ev = YTVISEvaluator(cfg.model.num_classes)
+    for dd in DatasetCatalog.get("ytvis_2019_val"):
+        h, w = dd["height"], dd["width"]
+        masks = np.stack([np.stack([np.zeros((h, w), bool) if sg is None
+                                    else segmentation_to_mask(sg, h, w) > 0
+                                    for sg in a["segmentations"]]) for a in dd["annotations"]])
+        labels = np.asarray([a["category_id"] for a in dd["annotations"]], np.int64)
+        crowd = np.asarray([bool(a["iscrowd"]) for a in dd["annotations"]])
+        ev.process({"video_id": dd["video_id"], "scores": np.ones(int((~crowd).sum())),
+                    "labels": labels[~crowd], "masks": masks[~crowd]},
+                   {"labels": labels, "masks": masks, "iscrowd": crowd})
+    ap = ev.evaluate()["AP"]
+    log("video_eval_oracle", AP=repr(float(ap)))
+    if float(ap) != 100.0:
+        raise AssertionError(f"the ground-truth tracks as predictions scored AP {ap}, not 100")
+
+
+def video_clip(cfg, index: int):
+    """Video `index` of ytvis_2019_val as the eval feeds it: (clip, frame
+    mask, its length)."""
+    from bm2f_tpu_torch import eval_video
+    from bm2f_tpu_torch.data import DatasetCatalog
+
+    dd = DatasetCatalog.get("ytvis_2019_val")[index]
+    short, top = cfg.input.min_size_test, cfg.input.max_size_test
+    clip, fv, _ = eval_video.prepare_clip(dd, dd["length"], short, top,
+                                          eval_video.spatial_buckets(short, top))
+    return clip, fv, dd["length"]
+
+
+def video_forward(cfg, model, clip, fv=None):
+    """The video model on a clip of raw pixels (and its frame mask), as
+    `eval_video.predict_clip` runs it: normalized, in f32, no gradient."""
+    from bm2f_tpu_torch.models.maskformer import normalize_images
+    from bm2f_tpu_torch.utils.precision import f32_scope
+
+    dev = next(model.parameters()).device
+    x = normalize_images(torch.from_numpy(np.ascontiguousarray(clip)).to(dev), cfg.model)
+    with torch.no_grad(), f32_scope(cfg.model.dtype):
+        return model(x, None if fv is None else torch.from_numpy(fv).to(dev))
+
+
+def video_padding_parity(cfg, model):
+    """Phase 29: the 5-frame clip at its true length (no frame mask) against
+    the same clip padded to its 8-frame bucket with `frame_valid`: logits and
+    the masks of its frames within the forward's card tolerance (phase 6)."""
+    clip, fv, T = video_clip(cfg, 0)
+    true = video_forward(cfg, model, clip[:, :T])
+    pad = video_forward(cfg, model, clip, fv)
+    diffs = {}
+    for key, a, b in (("pred_logits", pad["pred_logits"], true["pred_logits"]),
+                      ("pred_masks", pad["pred_masks"][:, :, :T], true["pred_masks"])):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1.5e-3)
+        diffs[key] = (a - b).abs().max().item()
+    log("video_padding", T=T, Tp=clip.shape[1], S=clip.shape[2],
+        **{f"{k}_max_abs_diff": f"{v:.3e}" for k, v in diffs.items()})
+
+
+def video_k1_rows(cfg, model):
+    """Phase 30, K1: at the eval's Tp = 8 and 40 buckets (S = 640), on the
+    first encoder layer's inputs of a clip of each, against the plain
+    version, timed beside it and the bound. Returns {Tp: row}."""
+    from bm2f_tpu_torch.models import pixel_decoder
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda, ms_deform_attn_plain
+
+    rows = {}
+    for index, length in enumerate(VIDEO_LENGTHS):
+        clip, fv, _ = video_clip(cfg, index)
+        Tp, S = clip.shape[1:3]
+        if Tp not in VIDEO_K1_FRAMES:
+            continue
+        calls = []
+        with _watch(pixel_decoder, "ms_deform_attn", calls, lambda a, o: a):
+            video_forward(cfg, model, clip, fv)
+        v, shapes, loc, attn = calls[0]
+        del calls
+        Q = loc.shape[1]
+        got = ms_deform_attn_cuda(v, shapes, loc, attn)
+        torch.cuda.synchronize()
+        want = ms_deform_attn_plain(v, shapes, loc, attn)
+        err = (got - want).abs().max().item()
+        del got, want
+        if not err <= 1e-4:  # 48 weighted samples an output, in another order
+            raise AssertionError(f"K1 at the video bucket Tp={Tp}: max abs err {err}")
+        k_ms = cuda_ms(lambda: ms_deform_attn_cuda(v, shapes, loc, attn), 20)
+        p_ms = cuda_ms(lambda: ms_deform_attn_plain(v, shapes, loc, attn), 3)
+        bound, by, n_bytes, flops = deform_bound_ms(Tp, shapes, Q, len(shapes), loc)
+        rows[Tp] = {"frames": Tp, "S": S, "shapes": [list(hw) for hw in shapes], "Q": Q,
+                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                    "bound_by": by}
+        log("time", kernel="ms_deform_attn_fwd", case=f"video_eval_Tp{Tp}_S{S}", B=Tp, Q=Q,
+            max_abs_err=f"{err:.3e}", ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=by, bytes=n_bytes, flops=flops,
+            share_of_bound=f"{bound / k_ms:.3f}")
+        del v, loc, attn
+        torch.cuda.empty_cache()
+    if sorted(rows) != sorted(VIDEO_K1_FRAMES):
+        raise AssertionError(f"K1 video rows at {sorted(rows)}, not {VIDEO_K1_FRAMES}")
+    return rows
+
+
+def video_k2_row(dev):
+    """Phase 30, K2: at the shapes of a video train step (2 clips x 2 frames
+    at 512x512: B*T = 4 frames, levels 16, 32, 64), on the bench's
+    encoder-like inputs (as phase 7's train case) and a seeded grad_out,
+    against the closed-form plain backward, bitwise across runs and tile
+    orders, timed beside it and the bound. Returns its row."""
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_bwd_plain
+
+    cfg = get_config(VIDEO_MASK_CONFIG, VIDEO_OVER)
+    size, B = cfg.input.image_size, cfg.train.ims_per_batch * cfg.input.sampling_frame_num
+    shapes = tuple((size // s, size // s) for s in (32, 16, 8))
+    Q, L = sum(h * w for h, w in shapes), len(shapes)
+    gen = torch.Generator().manual_seed(5)
+    v, loc, attn = deform_inputs(B, shapes, Q, gen, dev)
+    g = torch.randn(B, Q, M * D, generator=gen).to(dev)
+    first = k2_runs_bitwise(v, shapes, loc, attn, g)
+    want = ms_deform_attn_bwd_plain(v, shapes, loc, attn, g)
+    errs = {}
+    for name, a, w in zip(GRAD_TOL, first, want):
+        errs[name] = (a - w).abs().max().item()
+        torch.testing.assert_close(a, w, msg=f"{name}: max abs err {errs[name]:.3e}",
+                                   **GRAD_TOL[name])
+    del first, want
+    k_ms = cuda_ms(lambda: ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g), 20)
+    p_ms = cuda_ms(lambda: ms_deform_attn_bwd_plain(v, shapes, loc, attn, g), 3)
+    bound, by, n_bytes, flops = deform_bwd_bound_ms(B, shapes, Q, L, loc)
+    log("time", kernel="ms_deform_attn_bwd", case="video_train", B=B, Q=Q,
+        tiles=n_tiles(shapes, Q, True),
+        **{f"{k}_max_abs_err": f"{e:.3e}" for k, e in errs.items()}, ms=f"{k_ms:.4f}",
+        plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by, bytes=n_bytes,
+        flops=flops, share_of_bound=f"{bound / k_ms:.3f}")
+    return {"frames": B, "shapes": [list(hw) for hw in shapes], "Q": Q,
+            "max_abs_err": max(errs.values()), "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by}
+
+
+def video_k2_against_f64(trainer, batch, dev):
+    """Phase 31, before the timed steps: K2 on the first encoder layer's own
+    inputs of a video batch (a seeded grad_out) and the closed-form plain
+    backward in f32, each against the plain backward in f64 on the same
+    corners. Where the frames hold flat colours, a few d_loc elements are
+    small differences of large terms, so K2 and the plain f32 backward may
+    differ beyond GRAD_TOL there: each is held to the f64 backward instead,
+    K2 within twice the plain f32 backward's own error."""
+    from bm2f_tpu_torch.models import pixel_decoder
+    from bm2f_tpu_torch.models.maskformer import normalize_images
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_bwd_plain
+
+    calls = []
+    with _watch(pixel_decoder, "ms_deform_attn", calls,
+                lambda a, o: (a[0].detach(), a[1], a[2].detach(), a[3].detach())), \
+            torch.no_grad():
+        trainer.model(normalize_images(batch["images"], trainer.cfg.model))
+    v, shapes, loc, attn = calls[0]
+    del calls
+    g = torch.randn(v.shape[0], loc.shape[1], v.shape[2] * v.shape[3],
+                    generator=torch.Generator().manual_seed(5)).to(dev)
+    k2 = ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g)
+    plain = ms_deform_attn_bwd_plain(v, shapes, loc, attn, g)
+    ref = ms_deform_attn_bwd_plain(v.double(), shapes, loc, attn.double(), g.double())
+    fields, bad = {}, []
+    for name, a, p, r in zip(GRAD_TOL, k2, plain, ref):
+        tol = GRAD_TOL[name]
+        e_k, e_p = (a.double() - r).abs().max().item(), (p.double() - r).abs().max().item()
+        beyond = int(((a - p).abs() > tol["atol"] + tol["rtol"] * p.abs()).sum())
+        fields[name] = f"k2_f64={e_k:.3e} plain_f64={e_p:.3e} beyond_grad_tol={beyond}"
+        if not e_k <= 2 * e_p + 1e-7:
+            bad.append(name)
+    log("video_k2_f64", B=v.shape[0], Q=loc.shape[1],
+        **{k: repr(v_) for k, v_ in fields.items()})
+    if bad:
+        raise AssertionError(f"K2 on a video batch's inputs, against f64: {bad} beyond twice "
+                             "the plain f32 backward's error")
+
+
+def video_batches(config, dev, n: int, feats_root: str) -> list:
+    """`n` batches of phase 27's ytvis_2021_train split through the mapper
+    the train entry point picks for `config` (`ytvis_with_feats`, with the
+    synthetic DINO grids' root, for the temporal pairwise loss) and
+    `build_train_loader`, on the card."""
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.data import build_train_loader
+    from bm2f_tpu_torch.data.mappers import MAPPERS
+    from bm2f_tpu_torch.train.loop import to_device
+
+    cfg = get_config(config, VIDEO_OVER)
+    if "temporal_pairwise" in cfg.model.loss.sup_type:
+        mapper = MAPPERS["ytvis_with_feats"](cfg.input, seed=cfg.train.seed,
+                                             feats_root=feats_root)
+    else:
+        mapper = MAPPERS[cfg.input.dataset_mapper](cfg.input, seed=cfg.train.seed)
+    loader = build_train_loader("ytvis_2021_train", mapper, cfg.train.ims_per_batch,
+                                seed=cfg.train.seed)
+    return [to_device(next(loader), dev) for _ in range(n)]
+
+
+def video_weak_parity(trainer, batch):
+    """Phase 32, first part: the weak video loss and every parameter's
+    gradient three ways on the same weights and batch, as
+    tests/test_torch_cuda.py's weak test: K1 + K2 (A), K1 + the closed-form
+    plain backward (C), the plain deformable path (B). A-C (K2 against the
+    plain backward on the same forward): each gradient within a
+    norm-relative SAME_FORWARD_REL. A-B (the whole path): the loss to rtol
+    1e-4 and all gradients together within a norm-relative 1e-3 (K1 and the
+    plain forward round apart, which moves a few samples across a
+    pixel-centre line; the worst single parameter is logged)."""
+    from bm2f_tpu_torch.ops import deform_attn
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_plain
+
+    names, params = zip(*trainer.model.named_parameters())
+    res = {}
+    for run, impl, bwd in (("A", "auto", None), ("C", "auto", ms_deform_attn_bwd_plain),
+                           ("B", "plain", None)):
+        asg = []
+        with mock.patch.object(deform_attn, "ms_deform_attn_bwd_cuda",
+                               bwd or deform_attn.ms_deform_attn_bwd_cuda), \
+                _watch(trainer, "assign_fn", asg, lambda a, o: o):
+            total, losses = trainer.loss(batch, deform_impl=impl)
+            grads = torch.autograd.grad(total, params)
+        res[run] = (total.item(), grads, asg[0], {k: v.item() for k, v in losses.items()})
+    (la, ga, aa, ma), (_, gc, _, _), (lb, gb, ab, _) = res["A"], res["C"], res["B"]
+    same = [rel_err(a, c) for a, c in zip(ga, gc)]
+    whole = rel_err(torch.cat([g.reshape(-1) for g in ga]), torch.cat([g.reshape(-1) for g in gb]))
+    per = [rel_err(a, b) for a, b in zip(ga, gb)]
+    worst = max(range(len(per)), key=per.__getitem__)
+    log("video_parity", loss_kernel=f"{la:.6f}", loss_plain=f"{lb:.6f}",
+        loss_rel=f"{abs(la - lb) / abs(lb):.3e}", params=len(names),
+        same_forward_worst=f"{max(same):.3e}", whole_path=f"{whole:.3e}",
+        worst_param=f"{per[worst]:.3e}@{names[worst]}",
+        **{k: f"{ma[k]:.6f}" for k in VIDEO_WEAK_LOSSES},
+        assignments_differing=int((aa != ab).sum()))
+    zero = [k for k in VIDEO_WEAK_LOSSES if not ma[k] > 0]
+    if zero:
+        raise AssertionError(f"weak video losses zero at parity: {zero}")
+    if not abs(la - lb) <= 1e-4 * abs(lb):
+        raise AssertionError(f"weak video loss through the kernels {la} vs plain {lb}")
+    bad = [(n, r) for n, r in zip(names, same) if not r <= SAME_FORWARD_REL]
+    if bad or not whole <= 1e-3:
+        raise AssertionError(f"weak video gradients: K2 vs plain backward {bad[:5]}, "
+                             f"the whole path {whole:.3e}")
+
+
+def video_entry_point_run(data_root: str):
+    """Phase 33: the train entry point as a subprocess on the card on phase
+    27's splits (2 steps, an eval at step 1, a checkpoint at 2), then
+    `--eval-only --resume` (the eval at step 2). Returns its wall seconds."""
+    from bm2f_tpu_torch.train.checkpoint import Checkpointer
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_video_train_", dir=ROOT / "output")
+    base = [sys.executable, "-m", "bm2f_tpu_torch.train", "--config", VIDEO_WEAK_CONFIG,
+            "--dataset", "ytvis_2021_train", "--eval-dataset", "ytvis_2019_val",
+            "--data-root", data_root, "--output", out,
+            "--set", "train.ims_per_batch=2", "--set", "train.eval_period=1",
+            "--set", "train.checkpoint_period=2"]
+
+    def run(extra):
+        t0 = time.perf_counter()
+        res = subprocess.run(base + extra, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"{' '.join(extra)}: exit {res.returncode}\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        return res.stdout, res.stderr, time.perf_counter() - t0
+
+    try:
+        stdout, stderr, train_s = run(["--max-iter", "2"])
+        lines = [json.loads(ln) for ln in Path(out, "metrics.json").read_text().splitlines()]
+        steps = Checkpointer(str(Path(out, "checkpoints"))).all_steps()
+        eval_out, _, eval_s = run(["--eval-only", "--resume"])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    at1 = [ln for ln in lines if ln["iteration"] == 1]
+    want = {"total_loss", "loss_mask_projection", "loss_mask_temporal_pairwise",
+            "temp_pair_valid_prop", "grad_norm", "eval/AP"}
+    if not at1 or not want <= set(at1[-1]) or "training done at iter 2" not in stdout:
+        raise AssertionError(f"metrics.json {lines}; stdout {stdout[-2000:]}")
+    if "zero DINO features" not in stderr:
+        raise AssertionError(f"no zero-features notice in the log: {stderr[-2000:]}")
+    if 2 not in steps:
+        raise AssertionError(f"checkpoints at {steps}")
+    evals = [json.loads(ln[5:]) for ln in eval_out.splitlines() if ln.startswith("eval ")]
+    if (not evals or evals[0]["iteration"] != 2 or "eval/AP" not in evals[0]):
+        raise AssertionError(f"--eval-only: {eval_out[-2000:]}")
+    log("video_entry_point", config=VIDEO_WEAK_CONFIG, max_iter=2,
+        train_eval_s=f"{train_s:.2f}", eval_only_s=f"{eval_s:.2f}", checkpoints=steps,
+        metrics_at_1=",".join(sorted(k for k in at1[-1] if k.startswith("eval/"))),
         eval_only=repr({k: round(v, 3) for k, v in evals[0].items()}))
     return train_s
 
@@ -1742,7 +2177,48 @@ def main() -> int:
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
-    # -- 27. result ---------------------------------------------------------
+    # -- 27. the video data ---------------------------------------------------------------
+    video_root, feats_root = write_video_dataset(ROOT / "output")
+    try:
+        # -- 28. the video eval, and the ground truth as predictions ----------------------
+        vcfg, vmodel = make_video_model()
+        k1_video_eval, _ = video_eval_path(vcfg, vmodel)
+        video_gt_oracle(vcfg)
+
+        # -- 29. a clip padded to its frame bucket ----------------------------------------
+        video_padding_parity(vcfg, vmodel)
+
+        # -- 30. K1 at the video eval shapes, K2 at the video train shape ----------------
+        k1_video_rows = video_k1_rows(vcfg, vmodel)
+        del vmodel
+        torch.cuda.empty_cache()
+        k2_video_row = video_k2_row(dev)
+        torch.cuda.empty_cache()
+
+        # -- 31. video training -----------------------------------------------------------
+        k_video = {}
+        for path, config in (("mask", VIDEO_MASK_CONFIG), ("weak", VIDEO_WEAK_CONFIG)):
+            batches = video_batches(config, dev, TRAIN_STEPS + 1, feats_root)
+            trainer = make_weak_trainer(config, dev, over=VIDEO_OVER)
+            if path == "mask":
+                video_k2_against_f64(trainer, batches[0], dev)
+            k_video[path], _ = weak_train_path(trainer, batches, dev, f"video_{path}",
+                                               tag="video", nonzero=VIDEO_WEAK_LOSSES)
+            if path == "weak":
+                # -- 32. the weak video step against the plain path; repeatability --------
+                video_weak_parity(trainer, batches[-1])
+                del trainer
+                torch.cuda.empty_cache()
+                weak_repeats(batches, dev, VIDEO_WEAK_CONFIG, VIDEO_OVER)
+            trainer = batches = None
+            torch.cuda.empty_cache()
+
+        # -- 33. the train entry point on the video splits, with an eval ------------------
+        video_entry_point_run(video_root)
+    finally:
+        shutil.rmtree(video_root, ignore_errors=True)
+
+    # -- 34. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
     k1_pd_f32 = bf16_launches["bf16_pd_f32"][0]
     k1_eval = sum(n for n, _ in eval_launches.values())
@@ -1752,12 +2228,16 @@ def main() -> int:
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
-        "launches": launches + k1_train + k1_pd_f32 + k1_eval + k1_weak + k1_mask_wo_lsj,
+        "launches": (launches + k1_train + k1_pd_f32 + k1_eval + k1_weak + k1_mask_wo_lsj
+                     + k1_video_eval + k_video["mask"][0] + k_video["weak"][0]),
         "launches_by_path": {"serve": launches, "train": k1_train, "train_weak": k1_weak,
                              "train_wo_lsj": k1_mask_wo_lsj,
                              "serve_bf16_pixel_decoder_f32": k1_pd_f32,
-                             **{f"eval_{r}": n for r, (n, _) in eval_launches.items() if n}},
+                             **{f"eval_{r}": n for r, (n, _) in eval_launches.items() if n},
+                             "eval_video": k1_video_eval, "train_video": k_video["mask"][0],
+                             "train_video_weak": k_video["weak"][0]},
         "eval_buckets": {str(b): row for (b, dt), row in k1_buckets.items() if dt == "f32"},
+        "video_buckets": {f"Tp{tp}_S{row['S']}": row for tp, row in k1_video_rows.items()},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1769,9 +2249,12 @@ def main() -> int:
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_bwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:118",
-        "launches": k2_train + k2_weak + k2_mask_wo_lsj,
+        "launches": k2_train + k2_weak + k2_mask_wo_lsj + k_video["mask"][1] + k_video["weak"][1],
         "launches_by_path": {"serve": k2_serve, "train": k2_train, "train_weak": k2_weak,
-                             "train_wo_lsj": k2_mask_wo_lsj, "train_bf16": 0},
+                             "train_wo_lsj": k2_mask_wo_lsj, "train_bf16": 0,
+                             "train_video": k_video["mask"][1],
+                             "train_video_weak": k_video["weak"][1]},
+        "video_train": k2_video_row,
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,

@@ -857,3 +857,103 @@ def test_weak_loss_gradients_match_plain_path(no_tf32):
         assert (a - c).norm() <= 1e-5 * c.norm(), name
     flat_a, flat_b = (torch.cat([g.reshape(-1) for g in gs]) for gs in (ga, gb))
     assert (flat_a - flat_b).norm() <= 1e-3 * flat_b.norm()
+
+
+# the video slice's shapes, the model's heads (M=8, D=32, L=3, P=4): K1 over
+# B*T frames of the eval's 8- and 40-frame buckets at its 640 bucket (levels
+# 20, 40, 80), and K2 over the train step's 2 clips x 2 frames at 512x512
+VIDEO_EVAL_CASES = [(Tp, 8, 32, 4, ((20, 20), (40, 40), (80, 80))) for Tp in (8, 40)]
+VIDEO_TRAIN_CASE = (4, 8, 32, 4, ((16, 16), (32, 32), (64, 64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VIDEO_EVAL_CASES, ids=["Tp8", "Tp40"])
+def test_ms_deform_attn_kernel_at_video_eval_shapes(case):
+    """K1 in one launch over every frame of a clip bucket (value rows of
+    Tp frames), on encoder-like inputs: rtol/atol 1e-5 against the plain
+    version, as at the image shapes."""
+    dev = require_cuda()
+    shapes, value, loc, attn, _ = _encoder_inputs(case, dev, far=True, seed=2)
+    before = ms_deform_attn_cuda.launches
+    got = ms_deform_attn_cuda(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_cuda.launches == before + 1 and got.shape[0] == case[0]
+    torch.testing.assert_close(got, ms_deform_attn_plain(value, shapes, loc, attn),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ms_deform_attn_bwd_kernel_at_video_train_shape():
+    """K2 over the 4 frames of a video train step: GRAD_TOL against the
+    closed-form plain backward, d_value bitwise equal to the plain mirror
+    of its design, and all three gradients bitwise equal across two runs."""
+    dev = require_cuda()
+    shapes, value, loc, attn, g = _encoder_inputs(VIDEO_TRAIN_CASE, dev, far=True, seed=3)
+    a = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+    b = ms_deform_attn_bwd_cuda(value, shapes, loc, attn, g)
+    torch.cuda.synchronize()
+    want = ms_deform_attn_bwd_plain(value, shapes, loc, attn, g)
+    for name, x, w in zip(GRAD_TOL, a, want):
+        torch.testing.assert_close(x, w, msg=name, **GRAD_TOL[name])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    mirror = d_value_by_destination(destination_plan(shapes, loc, attn), shapes, g,
+                                    value.shape[2], torch.float32)
+    assert torch.equal(a[0], mirror)
+
+
+def _video_batch(dev, seed=0, B=2, T=2, size=256, G=4):
+    """Clips of `_weak_batch` images (the tiles move 64 pixels a frame),
+    rectangle masks that move with them, DINO-like (B, T, 16, 16, 384)
+    grids whose patches keep their feature as they move."""
+    first = _weak_batch("cpu", seed, B, size + 64 * T, G)
+    imgs = first["images"]
+    images = torch.stack([imgs[:, :size, 64 * (T - t):64 * (T - t) + size] for t in range(T)], 1)
+    masks = torch.stack([first["masks"][:, :, :size, 64 * (T - t):64 * (T - t) + size]
+                         for t in range(T)], 2)
+    gen = torch.Generator().manual_seed(seed)
+    base = torch.randn(B, 16, 16 + 4 * T, 384, generator=gen)
+    feats = torch.stack([base[:, :, 4 * (T - t):4 * (T - t) + 16] for t in range(T)], 1)
+    labels = torch.where(first["valid"], first["labels"] % 40, -1)  # YouTube-VIS: 40
+    batch = {"images": images, "masks": masks, "labels": labels,
+             "valid": first["valid"], "dino_feats": feats}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["ytvis2021_video_r50",
+                                    "ytvis2021_video_r50_proj_spatpair_temppair"],
+                         ids=["mask", "temppair"])
+def test_video_train_step_launches_kernels_and_repeats(preset):
+    """A video step (2 clips x 2 frames) launches K1 and K2 once per encoder
+    layer over the 4 frames (6 each, none on a bf16 value), its losses are
+    finite (the temporal pairwise loss nonzero at the warmup's end), and two
+    trainers from one seed end two steps with the same bits."""
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.train.trainer import Trainer
+
+    dev = require_cuda()
+    over = {**SMALL_CARD, "input.max_instances": 4,
+            "model.loss.weak.pairwise.warmup_iters": 1}
+    batches = [_video_batch(dev, seed=s) for s in (0, 1)]
+    states = []
+    for run in range(2):
+        trainer = Trainer(get_config(preset, over), device=dev, seed=0)
+        perturb_deformable(trainer.model)
+        trainer.step(batches[0])
+        before = (ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches,
+                  ms_deform_attn_cuda.launches_bf16, ms_deform_attn_bwd_cuda.launches_bf16)
+        metrics = trainer.step(batches[1])
+        torch.cuda.synchronize()
+        after = (ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches,
+                 ms_deform_attn_cuda.launches_bf16, ms_deform_attn_bwd_cuda.launches_bf16)
+        assert tuple(x - y for x, y in zip(after, before)) == (6, 6, 0, 0)
+        assert all(torch.isfinite(v) for v in metrics.values())
+        if "temppair" in preset:
+            assert metrics["loss_mask_temporal_pairwise"].item() > 0
+        sd = trainer.state_dict()
+        states.append({**{f"model.{k}": v for k, v in sd["model"].items()},
+                       **{f"{m}.{k}": v for m in ("mu", "nu")
+                          for k, v in sd["optimizer"][m].items()}})
+    differing = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+    assert not differing, differing[:8]

@@ -169,8 +169,15 @@ def test_train_mappers_match_jax(name):
 
 @pytest.mark.parametrize("name", ["ytvis", "ytvis_with_feats", "coco_clip"])
 def test_video_mappers_raise_until_ported(name):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        mappers.MAPPERS[name](InputConfig(), seed=0)
+    """Ported: each name gives the port's video mapper (held against the JAX
+    package's in tests/test_torch_ytvis.py)."""
+    from bm2f_tpu_torch.data import ytvis
+
+    cls = {"ytvis": ytvis.YTVISDatasetMapper,
+           "ytvis_with_feats": ytvis.YTVISDatasetWithFeatsMapper,
+           "coco_clip": ytvis.CocoClipDatasetMapper}[name]
+    assert mappers.MAPPERS[name] is cls
+    assert isinstance(mappers.MAPPERS[name](InputConfig(), seed=0), cls)
 
 
 # (H, W) at COCO-like aspect ratios; each lands in its bucket of (160, 224, 320)

@@ -8,7 +8,8 @@ the sort; `d_value_by_destination`, the reduce) against the JAX package.
   with numpy, independently of the port.
 - The mirror's d_value against `jax.grad` of `bm2f_tpu.ops.ms_deform_attn(
   impl="im2col")` in f32, at tests/test_torch_deform_attn_grad.py's
-  tolerance; on a bf16 `value` against the Pallas VJP in interpret mode,
+  tolerance (`check_mirror_d_value`, whose cases run from
+  tests/test_torch_deform_scatter_{a,b,c}.py); on a bf16 `value` against the Pallas VJP in interpret mode,
   relative to JAX's own bf16 error (both against the f64 backward, as
   tests/test_torch_train_bf16.py): e(mirror, f64) <= e(jax, f64) + 1e-6.
 - The mirror bitwise equal to itself when the tiles come in reverse order
@@ -110,15 +111,26 @@ def test_plan_holds_every_valid_corner_once_in_order(kind, case, far):
     assert int(plan.row_ptr[-1]) == plan.keys.numel()  # every sample has a key
 
 
-@pytest.mark.parametrize("kind,case,far", SCATTER_CASES, ids=IDS)
-def test_mirror_d_value_matches_jax_grad(kind, case, far):
+def scatter_cases(ids):
+    """The SCATTER_CASES of `ids`, for a file's own parametrize."""
+    return [SCATTER_CASES[IDS.index(i)] for i in ids]
+
+
+def check_mirror_d_value(kind, case, far):
+    """`test_mirror_d_value_matches_jax_grad` of one case. Its eight cases
+    run from tests/test_torch_deform_scatter_{a,b,c}.py, a few to a file, so
+    that no file holds a pytest worker (one file each under --dist
+    loadfile) for much longer than the others: JAX's gradient takes up to
+    a few minutes a case on the CPU."""
     shapes, value, loc, attn, g = _inputs(kind, case, far)
     M = value.shape[2]
 
     def loss(v, lo, a):  # sum(out * g): grad_out is g
         return jnp.sum(jax_ms_deform_attn(v, shapes, lo, a, impl="im2col") * g.numpy())
 
-    want = jax.grad(loss)(*(jnp.asarray(t.numpy()) for t in (value, loc, attn)))
+    # jitted: one compiled gradient (op by op, JAX takes minutes a case on a
+    # loaded CPU)
+    want = jax.jit(jax.grad(loss))(*(jnp.asarray(t.numpy()) for t in (value, loc, attn)))
     got = d_value_by_destination(destination_plan(shapes, loc, attn), shapes, g, M)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **D_VALUE_TOL)

@@ -17,7 +17,14 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "bm2f_tpu"))
 print("FORBIDDEN", bad)
 print("IMPORTED", len([n for n in sys.modules if n.startswith("bm2f_tpu_torch")]))
+print("MODULES", " ".join(sorted(n for n in sys.modules if n.startswith("bm2f_tpu_torch"))))
 """
+
+# the video slice's modules, which the walk must reach
+VIDEO_MODULES = ("bm2f_tpu_torch.video.video_decoder", "bm2f_tpu_torch.video.video_maskformer",
+                 "bm2f_tpu_torch.eval_video", "bm2f_tpu_torch.data.ytvis",
+                 "bm2f_tpu_torch.evaluation.ytvis_eval", "bm2f_tpu_torch.losses.video_criterion",
+                 "bm2f_tpu_torch.losses.weaksup_video")
 
 
 def test_port_imports_no_jax():
@@ -27,3 +34,5 @@ def test_port_imports_no_jax():
     assert "FORBIDDEN []" in res.stdout, res.stdout
     n = int(res.stdout.split("IMPORTED")[1].split()[0])
     assert n >= 15, res.stdout
+    modules = res.stdout.split("MODULES")[1].split()
+    assert set(VIDEO_MODULES) <= set(modules), res.stdout

@@ -128,10 +128,15 @@ def test_trainer_takes_the_image_weak_presets(preset):
 @pytest.mark.parametrize("preset", ["ytvis2021_video_r50_proj",
                                     "ytvis2021_video_r50_proj_spatpair_temppair"])
 def test_trainer_refuses_video_weak_types(preset):
-    with pytest.raises(NotImplementedError, match="item 18 .*item 19's video half"):
-        Trainer(get_config(preset), device="cpu")
+    """The video weak presets train (the video model and criterion,
+    tests/test_torch_weaksup_video.py); on an image task a video-only
+    sup_type is refused."""
+    over = {**SMALL, "model.decoder.dec_layers": 2}
+    trainer = Trainer(get_config(preset, over), device="cpu")
+    assert trainer.video and trainer.model.sem_seg_head.predictor.__class__.__name__ == \
+        "VideoMultiScaleMaskedTransformerDecoder"
     cfg = get_config("coco_instance_r50",
                      {"model.loss.sup_type": get_config(preset).model.loss.sup_type})
     if cfg.model.loss.sup_type != "mask_projection":
-        with pytest.raises(NotImplementedError, match="item 19's video half"):
+        with pytest.raises(ValueError, match="sup_type .* for task 'instance'"):
             Trainer(cfg, device="cpu")

@@ -292,8 +292,6 @@ def test_build_weaksup_targets_matches_jax():
     assert (np.abs(cs_w[flips] - 0.3) <= CS_ATOL).all()
     above = (cs_w >= 0.3).mean()
     assert 0.2 < above < 0.95, above  # the threshold splits the edges
-    with pytest.raises(NotImplementedError, match="items 18 .* and 19"):
-        tp.build_video_weaksup_targets()
 
 
 # -- the criterion ---------------------------------------------------------------

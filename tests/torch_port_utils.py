@@ -13,6 +13,16 @@ import torch
 
 from bm2f_tpu_torch.utils.convert_weights import jax_tree_to_numpy
 
+# One intra-op thread per test process. The suite runs in several pytest
+# workers side by side (xdist), each collecting every test module, so this
+# holds in every worker. With torch's default of a thread per core, the
+# workers' OpenMP teams oversubscribe the cores, and the barriers of the
+# many small ops in the port's plain paths then wait on descheduled
+# threads: on an 8-core host a K2 mirror case that takes 2 s alone took
+# over 360 s beside three copies of itself. No result depends on the thread
+# count beyond the order of a reduction, which every tolerance here covers.
+torch.set_num_threads(1)
+
 # the SMALL model of the whole-model tests (`coco_instance_r50` overrides):
 # depth-14 ResNet, conv/hidden/mask dim 64, FFN 128, 2 encoder layers, 6
 # decoder layers (two stacked rounds in the JAX tree), 10 queries
@@ -50,12 +60,15 @@ def submodule_state_dict(variables, jax_prefix: str, port_prefix: str,
             for k, v in flat.items()}
 
 
-def jax_criterion_points(rng, n_layers: int, batch: int, ccfg) -> Dict[str, torch.Tensor]:
+def jax_criterion_points(rng, n_layers: int, batch: int, ccfg,
+                         frames: int = 1) -> Dict[str, torch.Tensor]:
     """The uniform points the JAX package's `set_criterion` draws from `rng`
     (bm2f_tpu/losses/criterion.py:208, matcher.py:101, criterion.py:106-151),
     in the port's `draw_points` layout: rngs = split(rng, 2L+1); layer i's
     matcher points from rngs[i]; its candidate and random points from
-    r1, r2 = split(rngs[L + i])."""
+    r1, r2 = split(rngs[L + i]). With `frames` = T, those of
+    `video_set_criterion` (bm2f_tpu/losses/video_criterion.py:41, :98-129):
+    the matcher's per clip, the losses' per frame."""
     import jax.numpy as jnp
 
     n_imp = int(ccfg.importance_sample_ratio * ccfg.num_points)
@@ -65,8 +78,8 @@ def jax_criterion_points(rng, n_layers: int, batch: int, ccfg) -> Dict[str, torc
     for i in range(n_layers):
         match.append(jax.random.uniform(rngs[i], (batch, ccfg.num_points, 2), jnp.float32))
         r1, r2 = jax.random.split(rngs[n_layers + i])
-        cand.append(jax.random.uniform(r1, (batch, n_cand, 2), jnp.float32))
-        rand.append(jax.random.uniform(r2, (batch, ccfg.num_points - n_imp, 2),
+        cand.append(jax.random.uniform(r1, (batch * frames, n_cand, 2), jnp.float32))
+        rand.append(jax.random.uniform(r2, (batch * frames, ccfg.num_points - n_imp, 2),
                                        jnp.float32))
     return {k: torch.from_numpy(np.stack([np.asarray(x) for x in v]))
             for k, v in (("match", match), ("cand", cand), ("rand", rand))}
