@@ -37,6 +37,11 @@ class FrozenBatchNorm(nn.Module):
                 + cast(self.bias, x.dtype)[:, None, None])
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """`x` in f32, or as it is when it is f64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
     """A weight `p` in `dtype`: `p` itself when it is already (f32 training,
     or a model whose weights `cast_weights_` cast once), else a cast that
@@ -85,10 +90,11 @@ class Conv2d(nn.Conv2d):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax LayerNorm(dtype=x.dtype): statistics and affine map in f32."""
+    """flax LayerNorm(dtype=x.dtype): statistics and affine map in f32 (in
+    f64 for an f64 input, as a reference computes)."""
 
     def forward(self, x):
-        return super().forward(x.float()).to(x.dtype)
+        return super().forward(at_least_f32(x)).to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -135,7 +141,7 @@ class MultiHeadAttention(nn.Module):
     layout (packed `in_proj_weight` (3C, C), `in_proj_bias`, `out_proj`),
     batch-first (B, N, C), in the query's dtype. `attn_bias` is an additive
     float bias broadcastable to (B, heads, Nq, Nk); the softmax runs in
-    f32."""
+    f32 (f64 for an f64 query)."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -160,7 +166,7 @@ class MultiHeadAttention(nn.Module):
         logits = (q * (1.0 / D**0.5)) @ k.transpose(-1, -2)
         if attn_bias is not None:
             logits = logits + attn_bias.to(logits.dtype)
-        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        probs = torch.softmax(at_least_f32(logits), dim=-1).to(q.dtype)
         out = (probs @ v).transpose(1, 2).reshape(B, Nq, C)
         return self.out_proj(out)
 
@@ -168,6 +174,11 @@ class MultiHeadAttention(nn.Module):
 # ---------------------------------------------------------------------------
 # From-scratch initialisation (seeded), following the JAX package's inits
 # ---------------------------------------------------------------------------
+
+
+# the standard deviation of a standard normal cut at +-2 (flax's
+# `truncated_normal` divides its stddev by it)
+TRUNC_NORMAL_STD = 0.87962566103423978
 
 
 def _fans(w: torch.Tensor):
@@ -178,7 +189,11 @@ def _fans(w: torch.Tensor):
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded from-scratch init of every parameter, by name:
-    - backbone convolutions: c2_msra_fill (normal, std sqrt(2 / fan_out));
+    - ResNet convolutions: c2_msra_fill (normal, std sqrt(2 / fan_out));
+    - a backbone that sets `torch_linear_init` (Swin): Linear and conv
+      weights U(+-1/sqrt(fan_in)); its `relative_position_bias_table` and
+      `absolute_pos_embed` flax's truncated normal, std 0.02 (a standard
+      normal cut at +-2, scaled to std 0.02);
     - FPN adapters/layers and `mask_features`: c2_xavier_fill;
     - `mask_embed` weights: torch Linear default U(+-1/sqrt(fan_in)), bias 0;
     - deformable `sampling_offsets`/`attention_weights`: weights 0, offset
@@ -188,6 +203,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     Each parameter draws from `generator` in `named_parameters()` order.
     FrozenBN buffers keep their identity init."""
     mods = dict(module.named_modules())
+    torch_linear_backbone = getattr(mods.get("backbone"), "torch_linear_init", False)
     for name, p in module.named_parameters():
         owner = mods[name.rpartition(".")[0]] if "." in name else module
         leaf = name.rpartition(".")[2]
@@ -201,6 +217,13 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             p.zero_()
         elif leaf in ("bias", "in_proj_bias"):
             p.zero_()
+        elif leaf in ("relative_position_bias_table", "absolute_pos_embed"):
+            nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            p.mul_(0.02 / TRUNC_NORMAL_STD)
+        elif name.startswith("backbone.") and torch_linear_backbone:
+            fan_in, _ = _fans(p)
+            b = 1.0 / fan_in**0.5
+            p.uniform_(-b, b, generator=generator)
         elif name.startswith("backbone."):
             _, fan_out = _fans(p)
             p.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=generator)

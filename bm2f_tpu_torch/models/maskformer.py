@@ -29,6 +29,7 @@ from bm2f_tpu_torch.models.resnet import (
     RESNET_FEATURE_STRIDES,
     ResNet,
 )
+from bm2f_tpu_torch.models.swin import SwinTransformer
 from bm2f_tpu_torch.models.transformer_decoder import MultiScaleMaskedTransformerDecoder
 from bm2f_tpu_torch.ops import resize_bilinear
 
@@ -45,9 +46,8 @@ def normalize_images(images: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Parts of the JAX package that later slices of the port bring."""
-    if cfg.backbone.name != "resnet":
-        raise NotImplementedError(
-            f"backbone {cfg.backbone.name!r}: Swin is ROADMAP queue 1 item 16")
+    if cfg.backbone.name not in ("resnet", "swin"):
+        raise ValueError(f"backbone {cfg.backbone.name!r}: one of 'resnet', 'swin'")
     if cfg.pixel_decoder.name != "msdeform":
         raise NotImplementedError(
             f"pixel decoder {cfg.pixel_decoder.name!r}: the FPN and "
@@ -69,8 +69,13 @@ class MaskFormerHead(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         dtype = DTYPES[cfg.dtype]
+        if cfg.backbone.name == "swin":
+            ed = cfg.backbone.swin.embed_dim
+            in_channels = {"res2": ed, "res3": 2 * ed, "res4": 4 * ed, "res5": 8 * ed}
+        else:
+            in_channels = RESNET_FEATURE_CHANNELS
         self.pixel_decoder = MSDeformAttnPixelDecoder(
-            cfg.pixel_decoder, RESNET_FEATURE_CHANNELS, RESNET_FEATURE_STRIDES,
+            cfg.pixel_decoder, in_channels, RESNET_FEATURE_STRIDES,
             dtype=torch.float32 if cfg.pixel_decoder_f32 else dtype)
         C = cfg.pixel_decoder.conv_dim
         self.predictor = self.predictor_cls(
@@ -94,9 +99,12 @@ class MaskFormer(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
-        self.backbone = ResNet(cfg.backbone.resnet.depth,
-                               cfg.backbone.resnet.out_features,
-                               dtype=DTYPES[cfg.dtype])
+        dtype = DTYPES[cfg.dtype]
+        if cfg.backbone.name == "swin":
+            self.backbone = SwinTransformer.from_config(cfg.backbone.swin, dtype=dtype)
+        else:
+            self.backbone = ResNet(cfg.backbone.resnet.depth,
+                                   cfg.backbone.resnet.out_features, dtype=dtype)
         self.sem_seg_head = self.head_cls(cfg)
 
     def forward(self, images: torch.Tensor,

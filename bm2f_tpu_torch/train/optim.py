@@ -12,8 +12,9 @@ semantics (bm2f_tpu/train/optim.py, an optax chain):
   package picks them by path tokens (`norm`, `query_feat`, `query_embed`,
   `level_embed`, ...). Names do not carry over (the GroupNorm of
   `input_proj.N` is `input_proj.N.1`), so the port picks them by module:
-  every GroupNorm, LayerNorm and Embedding, and the pixel decoder's
-  `level_embed` parameter;
+  every GroupNorm, LayerNorm and Embedding, the pixel decoder's
+  `level_embed` and Swin's `relative_position_bias_table` and
+  `absolute_pos_embed` parameters;
 - WarmupMultiStep or WarmupPoly LR schedule, as a function of the number of
   updates made before this one.
 
@@ -32,7 +33,7 @@ from bm2f_tpu_torch.config import OptimizerConfig
 
 NO_DECAY_MODULES = (nn.GroupNorm, nn.LayerNorm, nn.Embedding)
 # parameters held directly by a module that are not decayed
-NO_DECAY_PARAMS = ("level_embed",)
+NO_DECAY_PARAMS = ("level_embed", "relative_position_bias_table", "absolute_pos_embed")
 
 
 class ParamGroup(NamedTuple):

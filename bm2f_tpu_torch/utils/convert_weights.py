@@ -2,14 +2,19 @@
 
 - `load_d2_state_dict`: a detectron2 Mask2Former checkpoint (.pkl / .pth, or
   a dict) as the port's `state_dict`. The port names its modules as
-  detectron2 does, so this only folds FrozenBN and renames the legacy
-  `static_query`.
+  detectron2 does, so this only folds the ResNet's FrozenBN, renames the
+  legacy `static_query` and drops Swin's `attn.relative_position_index`
+  (checked against the port's own) and `attn_mask` buffers.
 - `jax_variables_to_state_dict`: the JAX package's {"params", "frozen"}
   variable tree (as numpy arrays) as the port's `state_dict` — the exact
   inverse of the JAX package's `utils/convert_weights.py`:
   HWIO -> OIHW, (in, out) -> (out, in), packed in_proj (C, 3C) -> (3C, C),
   scan-stacked layers unstacked, and 0-indexed `adapter_{i}`/`layer_{i}` to
-  detectron2's `adapter_{i+1}`/`layer_{i+1}`. The JAX video model's tree
+  detectron2's `adapter_{i+1}`/`layer_{i+1}`. Swin's scanned block pairs
+  (`stage{s}_pairs/block{0,1}`, a leading (depth/2,) axis; block0 the even
+  blocks, block1 the odd) and unrolled blocks (`stage{s}_block{b}`) become
+  upstream's `layers.{s}.blocks.{i}`, and its (gs, gs, C)
+  `absolute_pos_embed` upstream's (1, C, gs, gs). The JAX video model's tree
   (its head's parts named `sem_seg_head_pixel_decoder` and
   `sem_seg_head_predictor`, its decoder scanned in `rounds` or unrolled)
   maps onto the same keys: the port's video model carries the image
@@ -20,6 +25,7 @@
 
 from __future__ import annotations
 
+import math
 import pickle
 import re
 from typing import Any, Dict, Iterator, Mapping, Tuple, Union
@@ -28,6 +34,10 @@ import numpy as np
 import torch
 
 BN_EPS = 1e-5
+# the ResNet's FrozenBN norms (stem and bottleneck convolutions); every other
+# backbone `.norm.` is a LayerNorm (Swin's patch embedding and merging)
+_FROZEN_BN = re.compile(
+    r"backbone\.(stem\.conv1|res[2-5]\.\d+\.(conv[123]|shortcut))\.norm\.weight")
 # d2 meta-architecture buffers that are not part of the network
 _NON_NETWORK = ("criterion.", "pixel_mean", "pixel_std")
 
@@ -47,15 +57,21 @@ def load_state_dict(path: str) -> Dict[str, np.ndarray]:
 def load_d2_state_dict(path_or_sd: Union[str, Mapping[str, Any]]) -> Dict[str, torch.Tensor]:
     """detectron2 checkpoint -> port `state_dict` (FrozenBN folded with
     eps 1e-5 into `scale`/`bias`; `static_query` renamed `query_feat`)."""
+    from bm2f_tpu_torch.models.swin import relative_position_index
+
     sd = (load_state_dict(path_or_sd) if isinstance(path_or_sd, str)
           else {k: np.asarray(v) for k, v in path_or_sd.items()})
     out: Dict[str, np.ndarray] = {}
     for k, v in sd.items():
-        if k.startswith(_NON_NETWORK) or k.endswith("num_batches_tracked"):
+        if k.startswith(_NON_NETWORK) or k.endswith(("num_batches_tracked", ".attn_mask")):
+            continue
+        if k.endswith(".attn.relative_position_index"):
+            window = math.isqrt(v.shape[0])
+            if not np.array_equal(v, relative_position_index(window)):
+                raise ValueError(f"{k} is not the window-{window} index")
             continue
         out[k.replace("static_query", "query_feat")] = v
-    for k in [k for k in out if k.startswith("backbone.") and ".norm." in k
-              and k.endswith(".weight")]:
+    for k in [k for k in out if _FROZEN_BN.fullmatch(k)]:
         prefix = k[: -len(".weight")]
         w, b = out.pop(k), out.pop(f"{prefix}.bias")
         mean = out.pop(f"{prefix}.running_mean", None)
@@ -86,6 +102,11 @@ _MODULE_RULES = [
     (r"backbone/stem_conv1/norm", "backbone.stem.conv1.norm"),
     (r"backbone/res(\d)_block(\d+)/(\w+)/conv", r"backbone.res\1.\2.\3"),
     (r"backbone/res(\d)_block(\d+)/(\w+)/norm", r"backbone.res\1.\2.\3.norm"),
+    (r"backbone/patch_embed_(proj|norm)", r"backbone.patch_embed.\1"),
+    (r"backbone/stage(\d+)_block(\d+)/(.+)", lambda m: (
+        f"backbone.layers.{m[1]}.blocks.{m[2]}.{_swin_sub(m[3])}")),
+    (r"backbone/downsample(\d+)/(norm|reduction)", r"backbone.layers.\1.downsample.\2"),
+    (r"backbone/out_norm(\d+)", r"backbone.norm\1"),
     (rf"{_PD}/input_proj_(\d+)_conv", r"sem_seg_head.pixel_decoder.input_proj.\1.0"),
     (rf"{_PD}/input_proj_(\d+)_norm", r"sem_seg_head.pixel_decoder.input_proj.\1.1"),
     (rf"{_PD}/mask_features", "sem_seg_head.pixel_decoder.mask_features"),
@@ -106,6 +127,12 @@ _DIRECT = {
     f"{_PR}/query_embed": "sem_seg_head.predictor.query_embed.weight",
     f"{_PR}/level_embed": "sem_seg_head.predictor.level_embed.weight",
 }
+
+
+def _swin_sub(path: str) -> str:
+    """A Swin block's JAX sub-module path (`attn/qkv`, `mlp_fc1`, ...) as
+    upstream's (`attn.qkv`, `mlp.fc1`, ...)."""
+    return path.replace("/", ".").replace("mlp_fc", "mlp.fc")
 
 
 # the JAX video model's names for its head's two parts
@@ -146,7 +173,17 @@ def _convert_leaf(path: str, value: np.ndarray, frozen: bool,
     if path in _DIRECT:
         yield _DIRECT[path], value
         return
+    if path == "backbone/absolute_pos_embed":  # (gs, gs, C) -> (1, C, gs, gs)
+        yield "backbone.absolute_pos_embed", value.transpose(2, 0, 1)[None]
+        return
     mod, _, name = path.rpartition("/")
+    pairs = re.fullmatch(r"backbone/stage(\d+)_pairs/block([01])/(.+)", mod)
+    if pairs:  # (depth/2, ...) -> blocks 2p (block0) and 2p + 1 (block1)
+        for p, v in enumerate(value):
+            key, v = _leaf(name, v, frozen)
+            i = 2 * p + int(pairs[2])
+            yield f"backbone.layers.{pairs[1]}.blocks.{i}.{_swin_sub(pairs[3])}.{key}", v
+        return
     enc = re.fullmatch(rf"{_PD}/encoder_layers/(.+)", mod)
     rnd = re.fullmatch(rf"{_PR}/rounds/(cross_attn|self_attn|ffn)_(\d+)(/.+)?", mod)
     if enc:  # (n_layers, ...) -> transformer.encoder.layers.{i}

@@ -130,7 +130,10 @@ Phases, each printing its own line:
      must score AP 100 exactly;
  29. padding on the card: the 5-frame clip at its true length against the
      same clip padded to its 8-frame bucket with `frame_valid`, logits and
-     masks within the forward's card tolerance;
+     masks within the forward's card tolerance; then stage by stage (the
+     backbone's levels and the pixel decoder's outputs on the valid frames,
+     batch 5 against batch 8, then the decoder's outputs), with cuDNN as
+     the eval runs it and with one algorithm forced;
  30. K1 at the video eval shapes (Tp 8 and 40 at S 640, on the first encoder
      layer's inputs of a clip of each) and K2 at the video train shape (2
      clips x 2 frames at 512x512, encoder-like inputs as phase 7's), each
@@ -158,7 +161,29 @@ Phases, each printing its own line:
      --dataset ytvis_2021_train --eval-dataset ytvis_2019_val --max-iter 2`
      on phase 27's splits (an eval at step 1, a checkpoint at 2), then
      `--eval-only --resume`, the eval at step 2;
- 34. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
+ 34. Swin-L (`coco_instance_swin_l`'s backbone, seeded) at B=2, 1024x1024
+     in f32 against the same backbone in f64 on the card, each level
+     norm-relative (SWIN_F64_REL: TF32 leaking into a window product, or a
+     mask or roll that differs on the card, shows here), both timed;
+ 35. serving `coco_instance_swin_l` at full width (Swin-L, window 12, 200
+     queries, 6 encoder and 9 decoder layers, seeded): the 3 requests
+     twice (the 480x640 and 800x1088 ones first at their shape, then
+     warm), every count set to 0 just before and read just after (K1 6
+     launches a request, K2 none); the stage split, peak memory, the kernel
+     path against the plain path, K1 on a request's first-layer inputs; one
+     bf16 request (`model.dtype=bfloat16`) against the f32 kernel path;
+ 36. training `coco_instance_swin_l`: gradient parity at the seeded init
+     (phase 9's, B=1), then phase 10's path (B=2, 1024x1024, 8 targets, one
+     warm-up and 3 timed steps, K1 and K2 6 launches a step, the split by
+     stage, peak memory), gradients in every Swin stage's `qkv` and bias
+     tables, and two trainers from one seed ending two steps with the same
+     bits (the bias tables' backward under deterministic algorithms);
+ 37. the video eval on `ytvis2019_video_swin_l` (Swin-L, its 480 test
+     size) at full width: the first clip of phase 27's val split (5 frames,
+     the 8-frame bucket) twice, every count set to 0 just before and read
+     just after (K1 6 launches a clip); first and warm time, peak memory,
+     K1 on the clip's first-layer inputs;
+ 38. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
 
 Any failure raises and the script exits non-zero. It imports nothing of JAX
@@ -271,6 +296,21 @@ VIDEO_OVER = {"train.ims_per_batch": 2, "model.loss.weak.pairwise.warmup_iters":
 VIDEO_K1_FRAMES = (8, 40)
 VIDEO_WEAK_LOSSES = ("loss_mask_projection", "loss_mask_spatial_pairwise",
                      "loss_mask_temporal_pairwise")
+# phase 29: the decoder in f64 on the padded clip against the clip at its
+# true length (both with a frame mask, so with the same temporal table): the
+# padded keys get exactly zero weight, so only f64 rounding (1e-16 of a
+# sum, amplified at most ~1e4 through the layers) separates them; padded
+# frames leaking into valid ones would move the outputs by 1e-3 or more
+PAD_F64_ABS = 1e-6
+# the Swin slice (phases 34-37): Swin-L (window 12, embed 192, 200 queries)
+# serving, training and the video eval at its 480 test size
+SWIN_CONFIG, SWIN_VIDEO_CONFIG = "coco_instance_swin_l", "ytvis2019_video_swin_l"
+# Swin-L's backbone at B=2, 1024x1024, f32 against f64 on the card, each
+# level norm-relative. f32 rounds each product of up to 4C = 6144 terms
+# (u = 6e-8, ~sqrt(K) u relative) through 24 blocks that LayerNorm
+# renormalises: 1e-6 to 1e-5. TF32 in a window product (u = 4.9e-4) would
+# put 1e-3 or more there
+SWIN_F64_REL = 2e-4
 # the probe: level sizes of every impl; CUDA-event launches
 PROBE_LEVELS, PROBE_ITERS = (625, 2500, 10000), 20
 # the probe's row of each kernel in the kernels line
@@ -553,9 +593,9 @@ def make_trainer(dev):
     return trainer
 
 
-def train_path(trainer, dev):
-    """Phase 10: the trainer's step at full width. Returns the launch counts
-    of K1 and K2 over the timed steps."""
+def train_path(trainer, dev, config=CONFIG):
+    """Phase 10 (and 36): the trainer's step at full width. Returns the
+    launch counts of K1 and K2 over the timed steps."""
     from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
     from bm2f_tpu_torch.train.trainer import StageTimer, synthetic_batch
 
@@ -564,7 +604,7 @@ def train_path(trainer, dev):
                             device=dev)
     trainer.step(batch)  # warm-up (cuDNN algorithm choice), not counted
     torch.cuda.synchronize()
-    log("train_setup", config=CONFIG, batch=TRAIN_BATCH, size=TRAIN_SIZE,
+    log("train_setup", config=config, batch=TRAIN_BATCH, size=TRAIN_SIZE,
         instances=TRAIN_INSTANCES, seconds=f"{time.perf_counter() - t0:.2f}")
     torch.cuda.reset_peak_memory_stats()
 
@@ -703,8 +743,8 @@ def k2_against_f64(k2_calls, offsets_in):
     return rows
 
 
-def grad_parity(trainer, dev, state: str):
-    """Phases 9 and 11: one B=1 1024x1024 loss and every parameter's
+def grad_parity(trainer, dev, state: str, per_param: bool = True):
+    """Phases 9, 11 and 36: one B=1 1024x1024 loss and every parameter's
     gradient on the same weights, batch and random points, five ways:
       A  K1 forward, K2 backward (the train path); A2 the same again
       C  K1 forward, the closed-form plain backward
@@ -714,7 +754,11 @@ def grad_parity(trainer, dev, state: str):
     forward (K1 against the plain einsum), D-B the closed form against
     autograd, A-B the whole. Also counts the samples whose corners moved
     between A's and D's forward, the importance selections and assignments
-    that differ, and holds K2 against an f64 backward layer by layer."""
+    that differ, and holds K2 against an f64 backward layer by layer. At
+    the init, A-B is held per parameter (`per_param`, R50) or, as phase 32
+    holds the video step, on all gradients together (Swin-L, whose bias
+    tables' small gradients move by 1e-3 of themselves when a few corners
+    move and an importance point changes)."""
     from bm2f_tpu_torch.losses.criterion import draw_points
     from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_plain, ms_deform_attn_plain
     from bm2f_tpu_torch.train.trainer import synthetic_batch
@@ -750,8 +794,10 @@ def grad_parity(trainer, dev, state: str):
     sel_diff = sum(int((a != b).sum()) for a, b in zip(run["A"][3], run["B"][3]))
     asg_diff = sum(int((a != b).sum()) for a, b in zip(run["A"][4], run["B"][4]))
     loss_a, loss_b = run["A"][0], run["B"][0]
+    whole = rel_err(torch.cat([g.reshape(-1) for g in run["A"][1]]),
+                    torch.cat([g.reshape(-1) for g in run["B"][1]]))
     log("grad_parity", state=state, loss_kernel=f"{loss_a:.6f}", loss_plain=f"{loss_b:.6f}",
-        params=len(names),
+        params=len(names), whole_path=f"{whole:.3e}",
         **{f"{p}_worst": f"{w[0]:.3e}@{w[1]}" for p, w in worst.items()})
     samples = run["A"][2][0][1][..., 0].numel()
     log("grad_parity_cause", state=state, samples_per_layer=samples,
@@ -771,7 +817,9 @@ def grad_parity(trainer, dev, state: str):
     # the forwards differ in f32 rounding, which moves a few samples across
     # a pixel-centre line (where the bilinear derivative jumps) and may swap
     # an importance point: the kernel-vs-plain gap, bounded at the init
-    if state == "init":
+    if state.startswith("init") and not per_param and not whole <= 1e-3:
+        raise AssertionError(f"all gradients: |g_kernel - g_plain| / |g_plain| = {whole}")
+    if state.startswith("init") and per_param:
         for name, r in zip(names, worst["A-B"][2]):
             if not r <= 1e-3:
                 raise AssertionError(f"{name}: |g_kernel - g_plain| / |g_plain| = {r}")
@@ -1727,41 +1775,18 @@ def video_padding_parity(cfg, model):
 
 def video_k1_rows(cfg, model):
     """Phase 30, K1: at the eval's Tp = 8 and 40 buckets (S = 640), on the
-    first encoder layer's inputs of a clip of each, against the plain
-    version, timed beside it and the bound. Returns {Tp: row}."""
-    from bm2f_tpu_torch.models import pixel_decoder
-    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda, ms_deform_attn_plain
-
+    first encoder layer's inputs of a clip of each (`k1_row`). Returns
+    {Tp: row}."""
     rows = {}
     for index, length in enumerate(VIDEO_LENGTHS):
         clip, fv, _ = video_clip(cfg, index)
         Tp, S = clip.shape[1:3]
         if Tp not in VIDEO_K1_FRAMES:
             continue
-        calls = []
-        with _watch(pixel_decoder, "ms_deform_attn", calls, lambda a, o: a):
-            video_forward(cfg, model, clip, fv)
-        v, shapes, loc, attn = calls[0]
-        del calls
-        Q = loc.shape[1]
-        got = ms_deform_attn_cuda(v, shapes, loc, attn)
-        torch.cuda.synchronize()
-        want = ms_deform_attn_plain(v, shapes, loc, attn)
-        err = (got - want).abs().max().item()
-        del got, want
-        if not err <= 1e-4:  # 48 weighted samples an output, in another order
-            raise AssertionError(f"K1 at the video bucket Tp={Tp}: max abs err {err}")
-        k_ms = cuda_ms(lambda: ms_deform_attn_cuda(v, shapes, loc, attn), 20)
-        p_ms = cuda_ms(lambda: ms_deform_attn_plain(v, shapes, loc, attn), 3)
-        bound, by, n_bytes, flops = deform_bound_ms(Tp, shapes, Q, len(shapes), loc)
-        rows[Tp] = {"frames": Tp, "S": S, "shapes": [list(hw) for hw in shapes], "Q": Q,
-                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                    "bound_by": by}
-        log("time", kernel="ms_deform_attn_fwd", case=f"video_eval_Tp{Tp}_S{S}", B=Tp, Q=Q,
-            max_abs_err=f"{err:.3e}", ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
-            bound_ms=f"{bound:.4f}", bound_by=by, bytes=n_bytes, flops=flops,
-            share_of_bound=f"{bound / k_ms:.3f}")
-        del v, loc, attn
+        inputs = first_layer_inputs(lambda: video_forward(cfg, model, clip, fv))
+        rows[Tp] = {"frames": Tp, "S": S,
+                    **k1_row(*inputs, case=f"video_eval_Tp{Tp}_S{S}")}
+        del inputs
         torch.cuda.empty_cache()
     if sorted(rows) != sorted(VIDEO_K1_FRAMES):
         raise AssertionError(f"K1 video rows at {sorted(rows)}, not {VIDEO_K1_FRAMES}")
@@ -1813,17 +1838,11 @@ def video_k2_against_f64(trainer, batch, dev):
     small differences of large terms, so K2 and the plain f32 backward may
     differ beyond GRAD_TOL there: each is held to the f64 backward instead,
     K2 within twice the plain f32 backward's own error."""
-    from bm2f_tpu_torch.models import pixel_decoder
     from bm2f_tpu_torch.models.maskformer import normalize_images
     from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_bwd_plain
 
-    calls = []
-    with _watch(pixel_decoder, "ms_deform_attn", calls,
-                lambda a, o: (a[0].detach(), a[1], a[2].detach(), a[3].detach())), \
-            torch.no_grad():
-        trainer.model(normalize_images(batch["images"], trainer.cfg.model))
-    v, shapes, loc, attn = calls[0]
-    del calls
+    v, shapes, loc, attn = first_layer_inputs(
+        lambda: trainer.model(normalize_images(batch["images"], trainer.cfg.model)))
     g = torch.randn(v.shape[0], loc.shape[1], v.shape[2] * v.shape[3],
                     generator=torch.Generator().manual_seed(5)).to(dev)
     k2 = ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g)
@@ -1957,6 +1976,321 @@ def video_entry_point_run(data_root: str):
         metrics_at_1=",".join(sorted(k for k in at1[-1] if k.startswith("eval/"))),
         eval_only=repr({k: round(v, 3) for k, v in evals[0].items()}))
     return train_s
+
+
+def k1_row(v, shapes, loc, attn, case: str) -> dict:
+    """K1 on one encoder layer's own inputs against the plain version (each
+    output sums 48 weighted samples in another order: 1e-4), timed beside it
+    and the bound. Returns its row."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda, ms_deform_attn_plain
+
+    B, Q = v.shape[0], loc.shape[1]
+    got = ms_deform_attn_cuda(v, shapes, loc, attn)
+    torch.cuda.synchronize()
+    want = ms_deform_attn_plain(v, shapes, loc, attn)
+    err = (got - want).abs().max().item()
+    del got, want
+    if not err <= 1e-4:
+        raise AssertionError(f"K1 at {case}: max abs err {err}")
+    k_ms = cuda_ms(lambda: ms_deform_attn_cuda(v, shapes, loc, attn), 20)
+    p_ms = cuda_ms(lambda: ms_deform_attn_plain(v, shapes, loc, attn), 3)
+    bound, by, n_bytes, flops = deform_bound_ms(B, shapes, Q, len(shapes), loc)
+    log("time", kernel="ms_deform_attn_fwd", case=case, B=B, Q=Q, max_abs_err=f"{err:.3e}",
+        ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+        bytes=n_bytes, flops=flops, share_of_bound=f"{bound / k_ms:.3f}")
+    return {"B": B, "shapes": [list(hw) for hw in shapes], "Q": Q, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by}
+
+
+def first_layer_inputs(run):
+    """The first encoder layer's (value, shapes, locations, weights) as
+    `run()` hands them to the deformable attention."""
+    from bm2f_tpu_torch.models import pixel_decoder
+
+    calls = []
+    with _watch(pixel_decoder, "ms_deform_attn", calls,
+                lambda a, o: (a[0].detach(), a[1], a[2].detach(), a[3].detach())), \
+            torch.no_grad():
+        run()
+    return calls[0]
+
+
+def video_padding_stages(cfg, model):
+    """Phase 29, second part: the 5-frame clip at its true length (batch 5)
+    and padded to its 8-frame bucket (batch 8), stage by stage: the
+    backbone's four levels and the pixel decoder's outputs on the valid
+    frames, once with cuDNN as the eval runs it and once with one algorithm
+    forced (benchmark off, deterministic on). Then the decoder alone on
+    those outputs, in f32 and with the decoder in f64: (a) the true-length
+    clip with no frame mask against the same clip with an all-valid mask
+    (the f64 temporal table against the masked f32 one), (b) that against
+    the padded clip (the padding alone). In f64, (b) must vanish
+    (PAD_F64_ABS): padded frames that leaked into the valid ones would show
+    there at any precision."""
+    import copy
+
+    from bm2f_tpu_torch.models.maskformer import normalize_images
+    from bm2f_tpu_torch.utils.precision import f32_scope
+
+    clip, fv, T = video_clip(cfg, 0)
+    dev = next(model.parameters()).device
+    x = normalize_images(torch.from_numpy(np.ascontiguousarray(clip)).to(dev), cfg.model)
+    head = model.sem_seg_head
+    cudnn = torch.backends.cudnn
+
+    def encode(frames):
+        B, Tn = frames.shape[:2]
+        feats = model.backbone(frames.flatten(0, 1).permute(0, 3, 1, 2).contiguous())
+        mf, _, ms = head.pixel_decoder(feats)
+        return ({**feats, **{f"pd_level{i}": f for i, f in enumerate(ms)}, "mask_features": mf},
+                ([f.reshape(B, Tn, *f.shape[1:]) for f in ms], mf.reshape(B, Tn, *mf.shape[1:])))
+
+    diffs = {}
+    for mode, flags in (("default", (cudnn.benchmark, cudnn.deterministic)),
+                        ("one_algorithm", (False, True))):
+        with torch.no_grad(), f32_scope(cfg.model.dtype), cudnn.flags(
+                enabled=True, benchmark=flags[0], deterministic=flags[1], allow_tf32=False):
+            (true_f, true_in), (pad_f, pad_in) = encode(x[:, :T]), encode(x)
+        diffs[mode] = {k: ((pad_f[k][:T] - true_f[k]).abs().max().item(),
+                           true_f[k].abs().max().item()) for k in true_f}
+        log("video_padding_stages", mode=mode, T=T, Tp=clip.shape[1],
+            **{k: f"{d:.3e}/{m:.3e}" for k, (d, m) in diffs[mode].items()})
+
+    dec64 = copy.deepcopy(head.predictor).double()
+    dec64.dtype = torch.float64
+    ones = torch.ones(1, T, dtype=torch.bool, device=dev)
+    runs = {"none": (true_in, None), "ones": (true_in, ones),
+            "padded": (pad_in, torch.from_numpy(fv).to(dev))}
+    for tag, dec, to in (("f32", head.predictor, lambda t: t),
+                         ("f64", dec64, lambda t: t.double())):
+        with torch.no_grad(), f32_scope(cfg.model.dtype):
+            out = {k: dec([to(f) for f in ms], to(mf), mask)
+                   for k, ((ms, mf), mask) in runs.items()}
+        for k in out:
+            out[k]["pred_masks"] = out[k]["pred_masks"][:, :, :T]
+        gaps = {f"{pair}_{key}": (out[a][key] - out[b][key]).abs().max().item()
+                for pair, a, b in (("table", "none", "ones"), ("padding", "ones", "padded"))
+                for key in ("pred_logits", "pred_masks")}
+        diffs[f"decoder_{tag}"] = gaps
+        log("video_padding_decoder", dtype=tag, **{k: f"{v:.3e}" for k, v in gaps.items()})
+    bad = {k: v for k, v in diffs["decoder_f64"].items()
+           if k.startswith("padding") and not v <= PAD_F64_ABS}
+    if bad:
+        raise AssertionError(f"the padded clip departs from its true length in f64: {bad}")
+    return diffs
+
+
+def swin_backbone_f64(dev):
+    """Phase 34: the Swin-L backbone of SWIN_CONFIG (seeded) at B=2,
+    1024x1024 in f32 on the card against the same backbone in f64 on the
+    card, each level norm-relative within SWIN_F64_REL; both timed."""
+    import copy
+
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.models import build_model
+    from bm2f_tpu_torch.utils.precision import f32_scope
+
+    backbone = build_model(get_config(SWIN_CONFIG), device=dev, seed=0).backbone
+    ref = copy.deepcopy(backbone).double()
+    ref.dtype = torch.float64
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(TRAIN_BATCH, 3, TRAIN_SIZE, TRAIN_SIZE, generator=gen).to(dev)
+    times = {}
+    with torch.no_grad(), f32_scope("float32"):
+        for tag, net, inp in (("f32", backbone, x), ("f64", ref, x.double())):
+            net(inp)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = net(inp)
+            torch.cuda.synchronize()
+            times[tag] = ((time.perf_counter() - t) * 1e3,
+                          torch.cuda.max_memory_allocated() / 2**30)
+            if tag == "f32":
+                got = out
+            del out
+        want = ref(x.double())
+    errs = {k: rel_err(got[k], want[k]) for k in want}
+    log("swin_f64", config=SWIN_CONFIG, B=TRAIN_BATCH, size=TRAIN_SIZE,
+        **{f"{k}_rel": f"{e:.3e}" for k, e in errs.items()},
+        **{f"{k}_shape": "x".join(map(str, got[k].shape)) for k in got},
+        f32_ms=f"{times['f32'][0]:.2f}", f64_ms=f"{times['f64'][0]:.2f}",
+        f32_peak_gib=f"{times['f32'][1]:.2f}", f64_peak_gib=f"{times['f64'][1]:.2f}")
+    bad = {k: e for k, e in errs.items() if not e <= SWIN_F64_REL}
+    if bad:
+        raise AssertionError(f"Swin-L f32 against f64 beyond {SWIN_F64_REL}: {bad}")
+    return errs
+
+
+def swin_serve(images, dev):
+    """Phase 35: `Predictor` on SWIN_CONFIG at full width (seeded, the
+    deformable projections perturbed as phase 5's) answers the requests
+    twice, every count set to 0 before and read after (K1 6 a request, K2
+    none): the 800x800 request warm, the 480x640 and 800x1088 ones first at
+    their shape the first time, then warm. The stage split, peak memory,
+    the kernel path against the plain path, K1 on a request's first-layer
+    inputs, and one bf16 request against the f32 kernel path."""
+    from bm2f_tpu_torch.models.maskformer import normalize_images
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+    from bm2f_tpu_torch.predict import Predictor
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+
+    pred = Predictor()
+    t0 = time.perf_counter()
+    pred.setup(SWIN_CONFIG, device=dev, seed=0)
+    perturb_deformable(pred.model)
+    torch.cuda.synchronize()
+    log("swin_setup", config=SWIN_CONFIG, seconds=f"{time.perf_counter() - t0:.2f}",
+        params=sum(p.numel() for p in pred.model.parameters()),
+        backbone_params=sum(p.numel() for p in pred.model.backbone.parameters()))
+    pred.predict(images[0])  # warm-up at 800x800, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first = serve(pred, images, "swin_l_f32_first")
+    warm = serve(pred, images, "swin_l_f32_warm")
+    launches = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16,
+                ms_deform_attn_bwd_cuda.launches)
+    if launches != (6 * 2 * len(images), 0, 0):
+        raise AssertionError(f"Swin-L serving: K1 f32, K1 bf16, K2 launched {launches}, "
+                             f"expected {6 * 2 * len(images)}, 0, 0")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("swin_main", launches=launches[0], k2_launches=launches[2],
+        peak_mem_gib=f"{peak:.2f}",
+        **{f"first_{h}x{w}_ms": f"{a:.2f}" for (h, w), a in zip(REQUESTS, first)},
+        **{f"warm_{h}x{w}_ms": f"{b:.2f}" for (h, w), b in zip(REQUESTS, warm)})
+    x = stage_split(pred, images[0], "swin_l_f32")
+    model = pred.model
+    xn = normalize_images(x.to(dev), pred.cfg.model)
+    with torch.no_grad():
+        a = model(xn)
+        b = model(xn, deform_impl="plain")
+    for key in ("pred_logits", "pred_masks"):
+        torch.testing.assert_close(a[key], b[key], rtol=1e-3, atol=1.5e-3)
+        log("swin_parity", key=key, max_abs_diff=f"{(a[key] - b[key]).abs().max().item():.3e}")
+    del b
+    row = k1_row(*first_layer_inputs(lambda: model(xn)), case="swin_l_serve_800x800")
+    del pred, model
+    torch.cuda.empty_cache()
+
+    pred16 = Predictor()
+    pred16.setup(SWIN_CONFIG, device=dev, seed=0, overrides={"model.dtype": "bfloat16"})
+    perturb_deformable(pred16.model)  # the f32 model's weights, in bf16
+    bf16_first = serve(pred16, images[:1], "swin_l_bf16_first")[0]
+    bf16_warm = serve(pred16, images[:1], "swin_l_bf16_warm")[0]
+    with torch.no_grad():
+        c = pred16.model(xn)
+    rel = {k: rel_err(c[k].float(), a[k]) for k in ("pred_logits", "pred_masks")}
+    log("swin_bf16", pixel_decoder_f32=pred16.cfg.model.pixel_decoder_f32,
+        first_ms=f"{bf16_first:.2f}", warm_ms=f"{bf16_warm:.2f}",
+        **{f"{k}_rel_vs_f32": f"{v:.3e}" for k, v in rel.items()})
+    # as phase 14's R50 bound; read on an H100: 7.8e-3 (logits), 1.5e-2 (masks)
+    if not max(rel.values()) <= BF16_VS_F32_REL:
+        raise AssertionError(f"Swin-L bf16 against f32 beyond {BF16_VS_F32_REL}: {rel}")
+    del pred16, a, c
+    torch.cuda.empty_cache()
+    return launches[0], row
+
+
+def make_swin_trainer(dev, seed=0):
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(get_config(SWIN_CONFIG), device=dev, seed=seed)
+    perturb_deformable(trainer.model)
+    return trainer
+
+
+def swin_train(dev):
+    """Phase 36: `Trainer` on SWIN_CONFIG at full width: gradient parity at
+    the seeded init (phase 9's, B=1), then phase 10's train path (B=2,
+    1024x1024, 8 targets; K1 and K2 6 launches a step), every Swin stage's
+    `qkv` and bias tables reached by the gradient, and two trainers from
+    one seed ending two steps with the same bits. Returns the launches."""
+    from bm2f_tpu_torch.train.trainer import synthetic_batch
+
+    trainer = make_swin_trainer(dev)
+    grad_parity(trainer, dev, "init_swin_l", per_param=False)
+    launches = train_path(trainer, dev, SWIN_CONFIG)
+    grads = {}
+    for s, stage in enumerate(trainer.model.backbone.layers):
+        for name in ("qkv.weight", "relative_position_bias_table"):
+            g = [blk.attn.get_parameter(name).grad for blk in stage.blocks]
+            grads[f"stage{s}_{name.split('.')[0]}"] = min(
+                0.0 if x is None else x.abs().sum().item() for x in g)
+    zero = [k for k, v in grads.items() if not v > 0]
+    log("swin_train_grads", **{k: f"{v:.3e}" for k, v in grads.items()})
+    if zero:
+        raise AssertionError(f"no gradient reached a block of {zero}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    batches = [synthetic_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_INSTANCES, seed=s, device=dev)
+               for s in (0, 1)]
+    states = []
+    for _ in range(2):
+        trainer = make_swin_trainer(dev)
+        for batch in batches:
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        states.append(trainer.state_dict())
+        del trainer
+        torch.cuda.empty_cache()
+    bad = _same_state(*states)
+    log("swin_repeat", config=SWIN_CONFIG, steps=2, state_keys=len(states[0]["model"]),
+        differing=len(bad))
+    if bad:
+        raise AssertionError(f"two Swin-L trainers from one seed differ in {bad[:8]}")
+    return launches
+
+
+def swin_video(dev):
+    """Phase 37: `run_video_eval` on SWIN_VIDEO_CONFIG (Swin-L, the 480 test
+    size) at full width, on the first clip of phase 27's ytvis_2019_val (5
+    frames, its 8-frame bucket) twice, every count set to 0 before and read
+    after (K1 6 a clip); the first and the warm clip's time, peak memory,
+    and K1 on the clip's first-layer inputs. Returns (K1 launches, row)."""
+    from bm2f_tpu_torch import eval_video
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.video import build_video_model
+
+    cfg = get_config(SWIN_VIDEO_CONFIG)
+    model = build_video_model(cfg, device=dev, seed=0)
+    perturb_deformable(model)
+    model.cast_weights_for_inference_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    passes = []
+    for _ in range(2):
+        timings = []
+        res = eval_video.run_video_eval(cfg, model, "ytvis_2019_val", max_videos=1,
+                                        timings=timings)
+        passes.append((res, timings[0]))
+    launches = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)
+    if launches != (6 * 2, 0):
+        raise AssertionError(f"Swin-L video eval: K1 f32, bf16 launches {launches}, "
+                             "expected 12 and 0")
+    (res, first), (_, warm) = passes
+    if not all(0.0 <= float(v) <= 100.0 for v in res.values()):
+        raise AssertionError(f"Swin-L video eval metrics {res}")
+    log("swin_video", config=SWIN_VIDEO_CONFIG, short_edge=cfg.input.min_size_test,
+        T=first["T"], Tp=first["frames"], S=first["size"],
+        first_ms=f"{first['ms']:.2f}", first_predict_ms=f"{first['predict_ms']:.2f}",
+        warm_ms=f"{warm['ms']:.2f}", warm_load_ms=f"{warm['load_ms']:.2f}",
+        warm_predict_ms=f"{warm['predict_ms']:.2f}", k1_launches_per_clip=launches[0] / 2,
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        metrics=" ".join(f"{k}={float(v):.4f}" for k, v in res.items()))
+    clip, fv, _ = video_clip(cfg, 0)
+    Tp, S = clip.shape[1:3]
+    row = k1_row(*first_layer_inputs(lambda: video_forward(cfg, model, clip, fv)),
+                 case=f"swin_l_video_Tp{Tp}_S{S}")
+    del model
+    torch.cuda.empty_cache()
+    return launches[0], row
 
 
 def main() -> int:
@@ -2185,8 +2519,9 @@ def main() -> int:
         k1_video_eval, _ = video_eval_path(vcfg, vmodel)
         video_gt_oracle(vcfg)
 
-        # -- 29. a clip padded to its frame bucket ----------------------------------------
+        # -- 29. a clip padded to its frame bucket, whole and stage by stage -------------
         video_padding_parity(vcfg, vmodel)
+        video_padding_stages(vcfg, vmodel)
 
         # -- 30. K1 at the video eval shapes, K2 at the video train shape ----------------
         k1_video_rows = video_k1_rows(vcfg, vmodel)
@@ -2215,10 +2550,23 @@ def main() -> int:
 
         # -- 33. the train entry point on the video splits, with an eval ------------------
         video_entry_point_run(video_root)
+
+        # -- 34. Swin-L's backbone in f32 against f64 -------------------------------------
+        swin_backbone_f64(dev)
+        torch.cuda.empty_cache()
+
+        # -- 35. serving Swin-L --------------------------------------------------------------
+        k1_swin_serve, k1_swin_serve_row = swin_serve(images, dev)
+
+        # -- 36. training Swin-L -------------------------------------------------------------
+        k1_swin_train, k2_swin_train = swin_train(dev)
+
+        # -- 37. the video eval on Swin-L ---------------------------------------------------
+        k1_swin_video, k1_swin_video_row = swin_video(dev)
     finally:
         shutil.rmtree(video_root, ignore_errors=True)
 
-    # -- 34. result ---------------------------------------------------------
+    # -- 38. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
     k1_pd_f32 = bf16_launches["bf16_pd_f32"][0]
     k1_eval = sum(n for n, _ in eval_launches.values())
@@ -2229,15 +2577,19 @@ def main() -> int:
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
         "launches": (launches + k1_train + k1_pd_f32 + k1_eval + k1_weak + k1_mask_wo_lsj
-                     + k1_video_eval + k_video["mask"][0] + k_video["weak"][0]),
+                     + k1_video_eval + k_video["mask"][0] + k_video["weak"][0]
+                     + k1_swin_serve + k1_swin_train + k1_swin_video),
         "launches_by_path": {"serve": launches, "train": k1_train, "train_weak": k1_weak,
                              "train_wo_lsj": k1_mask_wo_lsj,
                              "serve_bf16_pixel_decoder_f32": k1_pd_f32,
                              **{f"eval_{r}": n for r, (n, _) in eval_launches.items() if n},
                              "eval_video": k1_video_eval, "train_video": k_video["mask"][0],
-                             "train_video_weak": k_video["weak"][0]},
+                             "train_video_weak": k_video["weak"][0],
+                             "serve_swin_l": k1_swin_serve, "train_swin_l": k1_swin_train,
+                             "eval_video_swin_l": k1_swin_video},
         "eval_buckets": {str(b): row for (b, dt), row in k1_buckets.items() if dt == "f32"},
         "video_buckets": {f"Tp{tp}_S{row['S']}": row for tp, row in k1_video_rows.items()},
+        "swin_l": {"serve_800x800": k1_swin_serve_row, "video": k1_swin_video_row},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2249,11 +2601,13 @@ def main() -> int:
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_bwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:118",
-        "launches": k2_train + k2_weak + k2_mask_wo_lsj + k_video["mask"][1] + k_video["weak"][1],
+        "launches": (k2_train + k2_weak + k2_mask_wo_lsj + k_video["mask"][1]
+                     + k_video["weak"][1] + k2_swin_train),
         "launches_by_path": {"serve": k2_serve, "train": k2_train, "train_weak": k2_weak,
                              "train_wo_lsj": k2_mask_wo_lsj, "train_bf16": 0,
                              "train_video": k_video["mask"][1],
-                             "train_video_weak": k_video["weak"][1]},
+                             "train_video_weak": k_video["weak"][1],
+                             "train_swin_l": k2_swin_train},
         "video_train": k2_video_row,
         "max_abs_err": k2_err,
         "ms": k2_ms,

@@ -54,11 +54,10 @@ def _port_model(variables):
 # -- optimizer ---------------------------------------------------------------
 
 
-def test_param_groups_match_jax(jax_small):
+def check_param_groups(variables, model, cfg) -> dict:
     """Every parameter's (LR multiplier, decayed) against the JAX path rule
-    (bm2f_tpu/train/optim.py:23-42), tensor by tensor."""
-    _, _, variables = jax_small
-
+    (bm2f_tpu/train/optim.py:23-42), tensor by tensor. Returns the groups by
+    name."""
     def tagged(fn):
         return jax.tree_util.tree_map_with_path(
             lambda p, x: np.full(np.shape(x), fn(jax_optim._path_str(p)), np.float64),
@@ -66,17 +65,23 @@ def test_param_groups_match_jax(jax_small):
 
     lr_ref = _port_keys(tagged(lambda s: 0.1 if jax_optim._is_backbone(s) else 1.0))
     wd_ref = _port_keys(tagged(lambda s: 0.0 if jax_optim._no_decay(s) else 1.0))
-    cfg, model = _port_model(variables)
     groups = param_groups(model, cfg.train.optimizer)
     assert {g.name for g in groups} == set(lr_ref) == set(dict(model.named_parameters()))
-    n_no_decay = 0
     for g in groups:
         assert np.unique(lr_ref[g.name]).tolist() == [g.lr_mult], g.name
         assert np.unique(wd_ref[g.name]).tolist() == [float(g.decay)], g.name
-        n_no_decay += not g.decay
+    return {g.name: g for g in groups}
+
+
+def test_param_groups_match_jax(jax_small):
+    """Every parameter's (LR multiplier, decayed) against the JAX path rule,
+    tensor by tensor."""
+    _, _, variables = jax_small
+    cfg, model = _port_model(variables)
+    by_name = check_param_groups(variables, model, cfg)
+    n_no_decay = sum(not g.decay for g in by_name.values())
     # GroupNorm inside nn.Sequential (`input_proj.N.1`) has no "norm" in its
     # name; the module rule must still exempt it
-    by_name = {g.name: g for g in groups}
     assert not by_name["sem_seg_head.pixel_decoder.input_proj.0.1.weight"].decay
     assert n_no_decay > 20
 

@@ -40,6 +40,18 @@ SMALL = {
     "model.decoder.num_queries": 10,
 }
 
+# the SMALL Swin model (a `*_swin_t` preset with these overrides): SMALL's
+# head on a Swin of embed 32, heads (1, 2, 4, 8), depths (2, 2, 3, 2) (stage
+# 2 odd: the JAX package unrolls it, the even stages scan block pairs),
+# window 7
+SMALL_SWIN = {
+    **{k: v for k, v in SMALL.items() if ".resnet." not in k},
+    "model.backbone.swin.embed_dim": 32,
+    "model.backbone.swin.depths": (2, 2, 3, 2),
+    "model.backbone.swin.num_heads": (1, 2, 4, 8),
+    "model.backbone.swin.window_size": 7,
+}
+
 
 def to_numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
