@@ -28,6 +28,12 @@ rescoring of instance masks, the semantic argmax and the panoptic fusion.
 Only the results the evaluators read go to the host. The evaluators are
 numpy (copies of the JAX package's); their state is merged across the
 processes of an initialized `torch.distributed` group before scoring.
+
+Every forward goes through `utils.memory.retry_if_oom`, as the root eval's
+do: out of device memory, a batch is halved until it fits (a batch of one
+image raises). `--tta` (`models/tta.py`) evaluates `sem_seg` datasets with
+multi-scale and flip ensembling, each image at its original size; other
+evaluator types ignore it, as the root eval does, and say so once.
 """
 
 from __future__ import annotations
@@ -40,16 +46,33 @@ import numpy as np
 import torch
 
 
-def _forward(cfg, model, images: np.ndarray) -> Dict[str, torch.Tensor]:
-    """The network on a (B, H, W, 3) batch of raw pixels, on the model's
-    device (f32 models in f32, whatever the global flags say)."""
+def _forward(cfg, model, images) -> Dict[str, torch.Tensor]:
+    """The network on a (B, H, W, 3) batch of raw pixels (an array, or a
+    tensor), on the model's device (f32 models in f32, whatever the global
+    flags say)."""
     from bm2f_tpu_torch.models.maskformer import normalize_images
     from bm2f_tpu_torch.utils.precision import f32_scope
 
     device = next(model.parameters()).device
-    x = normalize_images(torch.from_numpy(np.ascontiguousarray(images)).to(device), cfg.model)
+    if not isinstance(images, torch.Tensor):
+        images = torch.from_numpy(np.ascontiguousarray(images))
+    x = normalize_images(images.to(device), cfg.model)
     with torch.no_grad(), f32_scope(cfg.model.dtype):
         return model(x)
+
+
+def predictor_fn(cfg, model):
+    """(B, H, W, 3) raw pixels -> (pred_logits, pred_masks), through
+    `retry_if_oom` (the reference wraps every inference step in
+    retry_if_cuda_oom, maskformer_model.py:355-374; the root eval wraps its
+    jitted predictions): out of device memory the batch is halved."""
+    from bm2f_tpu_torch.utils.memory import retry_if_oom
+
+    def predict(images):
+        out = _forward(cfg, model, images)
+        return out["pred_logits"], out["pred_masks"]
+
+    return retry_if_oom(predict)
 
 
 def _to_original(masks: torch.Tensor, pad_hw, valid_hw, orig_hw) -> torch.Tensor:
@@ -67,21 +90,27 @@ def instance_on_device(logits: torch.Tensor, masks: torch.Tensor, pad_hw, valid_
     """One image's instances at its original size (reference :573-623):
     top-k over the flattened Q x K scores, the selected masks at the
     original size, binarized at 0, scores times the mean mask probability
-    over each mask (reference :621)."""
+    over each mask (reference :621). Each mask is restored on its own, so
+    out of device memory `retry_if_oom` halves the selected masks (at the
+    1344 bucket, 100 of them take ~2 GB on the way)."""
     from bm2f_tpu_torch.models.maskformer import instance_topk_select
+    from bm2f_tpu_torch.utils.memory import retry_if_oom
+
+    def restore(sel):
+        m = _to_original(sel, pad_hw, valid_hw, orig_hw)
+        binary = m > 0
+        prob = torch.sigmoid(m)
+        area = binary.flatten(1).sum(-1)
+        return binary, (prob * binary).flatten(1).sum(-1) / (area + 1e-6)
 
     scores, labels, sel = instance_topk_select(logits, masks, num_classes=num_classes,
                                                topk=topk)
-    m = _to_original(sel, pad_hw, valid_hw, orig_hw)
-    binary = m > 0
-    prob = torch.sigmoid(m)
-    area = binary.flatten(1).sum(-1)
-    mask_scores = (prob * binary).flatten(1).sum(-1) / (area + 1e-6)
+    binary, mask_scores = retry_if_oom(restore)(sel)
     return {"scores": scores * mask_scores, "labels": labels, "masks": binary}
 
 
 def _build_loader(cfg, dataset_name, short_edge, max_size, bucket,
-                  rank=0, world_size=1, carry_dict=False):
+                  rank=0, world_size=1, carry_dict=False, batch_size=1):
     from bm2f_tpu_torch.data import build_test_loader
     from bm2f_tpu_torch.data.mappers import EvalMapper
 
@@ -97,7 +126,7 @@ def _build_loader(cfg, dataset_name, short_edge, max_size, bucket,
             return s
     else:
         mapper = base
-    return build_test_loader(dataset_name, mapper, batch_size=1,
+    return build_test_loader(dataset_name, mapper, batch_size=batch_size,
                              rank=rank, world_size=world_size)
 
 
@@ -114,7 +143,8 @@ def _record(timings: Optional[List[dict]], batch, t0: float) -> None:
 def eval_instance(cfg, model, dataset_name: str, max_images: int = 0,
                   short_edge: int = 800, max_size: int = 1333,
                   bucket=(704, 960, 1344), rank: int = 0, world_size: int = 1,
-                  protocol: str = "coco", timings: Optional[List[dict]] = None):
+                  protocol: str = "coco", timings: Optional[List[dict]] = None,
+                  ims_per_batch: int = 1):
     """Instance mask AP (reference inference: maskformer_model.py:573-623).
     protocol="lvis" applies the federated LVIS protocol (300 dets/image,
     neg/not-exhaustive category handling; reference train_net.py:126-128)."""
@@ -126,7 +156,8 @@ def eval_instance(cfg, model, dataset_name: str, max_images: int = 0,
     num_classes = cfg.model.num_classes
     topk = 300 if protocol == "lvis" else 100
     loader = _build_loader(cfg, dataset_name, short_edge, max_size, bucket,
-                           rank, world_size)
+                           rank, world_size, batch_size=ims_per_batch)
+    predict = predictor_fn(cfg, model)
     dicts = {d["image_id"]: d for d in DatasetCatalog.get(dataset_name)}
     if protocol == "lvis":
         from bm2f_tpu_torch.evaluation.lvis_eval import LVISMaskAPEvaluator
@@ -140,13 +171,13 @@ def eval_instance(cfg, model, dataset_name: str, max_images: int = 0,
     n = 0
     for batch in loader:
         t0 = time.perf_counter()
-        out = _forward(cfg, model, batch["images"])
+        logits, masks = predict(batch["images"])
         pad_hw = batch["images"].shape[1:3]
         for i in range(len(batch["images"])):
             oh, ow = batch["orig_hw"][i]
             with torch.no_grad():
                 inst = instance_on_device(
-                    out["pred_logits"][i], out["pred_masks"][i], pad_hw,
+                    logits[i], masks[i], pad_hw,
                     batch["resized_hw"][i], (oh, ow), num_classes=num_classes, topk=topk)
             inst = {k: v.cpu().numpy() for k, v in inst.items()}
             inst["valid"] = np.ones(len(inst["masks"]), bool)
@@ -174,6 +205,7 @@ def eval_instance(cfg, model, dataset_name: str, max_images: int = 0,
             evaluator.process(inst, gt)
             n += 1
         _record(timings, batch, t0)
+        del logits, masks  # not held through the next batch's forward
         if max_images and n >= max_images:
             break
     res = gather_evaluator(evaluator).evaluate()
@@ -210,9 +242,15 @@ def semantic_on_device(logits: torch.Tensor, masks: torch.Tensor, pad_hw, valid_
 def eval_semantic(cfg, model, dataset_name: str, max_images: int = 0,
                   short_edge: int = 512, max_size: int = 2048,
                   bucket=(512, 768, 1024), rank: int = 0, world_size: int = 1,
-                  timings: Optional[List[dict]] = None):
+                  timings: Optional[List[dict]] = None, ims_per_batch: int = 1,
+                  tta: bool = False):
     """Semantic mIoU (reference: semantic_inference maskformer_model.py:509-513
-    + d2 SemSegEvaluator, train_net.py:78-86)."""
+    + d2 SemSegEvaluator, train_net.py:78-86). With `tta`, multi-scale and
+    flip ensembling (`models/tta.py`, test_time_augmentation.py:21) of each
+    image at its original size (no resize, no bucket), the images shared
+    out by `rank::world_size` as the root eval does, the prediction the
+    argmax of the averaged probabilities (the first class among equals);
+    `timings` then receives one {"hw", "ms"} per image."""
     from bm2f_tpu_torch.data import MetadataCatalog
     from bm2f_tpu_torch.evaluation import SemSegEvaluator
     from bm2f_tpu_torch.evaluation.evaluator import gather_evaluator
@@ -220,21 +258,56 @@ def eval_semantic(cfg, model, dataset_name: str, max_images: int = 0,
     meta = MetadataCatalog.get(dataset_name)
     evaluator = SemSegEvaluator(cfg.model.num_classes,
                                 ignore_label=getattr(meta, "ignore_label", 255))
+    predict = predictor_fn(cfg, model)
+    if tta:
+        return _eval_semantic_tta(cfg, model, predict, evaluator, dataset_name,
+                                  max_images, rank, world_size, timings)
     loader = _build_loader(cfg, dataset_name, short_edge, max_size, bucket,
-                           rank, world_size, carry_dict=True)
+                           rank, world_size, carry_dict=True, batch_size=ims_per_batch)
     n = 0
     for batch in loader:
         t0 = time.perf_counter()
-        out = _forward(cfg, model, batch["images"])
+        logits, masks = predict(batch["images"])
         pad_hw = batch["images"].shape[1:3]
         for i in range(len(batch["images"])):
             with torch.no_grad():
-                pred = semantic_on_device(out["pred_logits"][i], out["pred_masks"][i],
+                pred = semantic_on_device(logits[i], masks[i],
                                           pad_hw, batch["resized_hw"][i],
                                           batch["orig_hw"][i])
             evaluator.process(pred.cpu().numpy(), load_sem_gt(batch["_dd"][i]))
             n += 1
         _record(timings, batch, t0)
+        del logits, masks  # not held through the next batch's forward
+        if max_images and n >= max_images:
+            break
+    res = gather_evaluator(evaluator).evaluate()
+    print({k: round(v, 2) for k, v in res.items()})
+    return res
+
+
+def _eval_semantic_tta(cfg, model, predict, evaluator, dataset_name, max_images,
+                       rank, world_size, timings):
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.data.mappers import read_image
+    from bm2f_tpu_torch.evaluation.evaluator import gather_evaluator
+    from bm2f_tpu_torch.models.tta import semantic_tta
+    from bm2f_tpu_torch.utils.precision import f32_scope
+
+    device = next(model.parameters()).device
+    n = 0
+    for dd in DatasetCatalog.get(dataset_name)[rank::world_size]:
+        t0 = time.perf_counter()
+        img = dd.get("image")
+        if img is None:
+            img = read_image(dd["file_name"])
+        x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(device)
+        with torch.no_grad(), f32_scope(cfg.model.dtype):
+            pred = semantic_tta(predict, x).argmax(-1)
+        evaluator.process(pred.cpu().numpy(), load_sem_gt(dd))
+        if timings is not None:
+            timings.append({"hw": list(img.shape[:2]),
+                            "ms": (time.perf_counter() - t0) * 1e3})
+        n += 1
         if max_images and n >= max_images:
             break
     res = gather_evaluator(evaluator).evaluate()
@@ -261,7 +334,7 @@ def panoptic_on_device(cfg, logits: torch.Tensor, masks: torch.Tensor, pad_hw,
 def eval_panoptic(cfg, model, dataset_name: str, max_images: int = 0,
                   short_edge: int = 800, max_size: int = 1333,
                   bucket=(704, 960, 1344), rank: int = 0, world_size: int = 1,
-                  timings: Optional[List[dict]] = None):
+                  timings: Optional[List[dict]] = None, ims_per_batch: int = 1):
     """Panoptic PQ/SQ/RQ (reference: panoptic_inference
     maskformer_model.py:515-571 + d2 COCOPanopticEvaluator)."""
     from bm2f_tpu_torch.data import DatasetCatalog, MetadataCatalog
@@ -284,15 +357,16 @@ def eval_panoptic(cfg, model, dataset_name: str, max_images: int = 0,
               "panoptic fusion will merge every class as stuff")
     evaluator = PanopticEvaluator(num_classes, thing_mask)
     loader = _build_loader(cfg, dataset_name, short_edge, max_size, bucket,
-                           rank, world_size, carry_dict=True)
+                           rank, world_size, carry_dict=True, batch_size=ims_per_batch)
+    predict = predictor_fn(cfg, model)
     n = 0
     for batch in loader:
         t0 = time.perf_counter()
-        out = _forward(cfg, model, batch["images"])
+        logits, masks = predict(batch["images"])
         pad_hw = batch["images"].shape[1:3]
         for i in range(len(batch["images"])):
             with torch.no_grad():
-                pan = panoptic_on_device(cfg, out["pred_logits"][i], out["pred_masks"][i],
+                pan = panoptic_on_device(cfg, logits[i], masks[i],
                                          pad_hw, batch["resized_hw"][i],
                                          batch["orig_hw"][i], thing_mask)
             seg_map, segments = relabel_panoptic({k: v.cpu().numpy() for k, v in pan.items()})
@@ -315,6 +389,7 @@ def eval_panoptic(cfg, model, dataset_name: str, max_images: int = 0,
             evaluator.process(pred_map, pred_segments, gt_map, gt_segments)
             n += 1
         _record(timings, batch, t0)
+        del logits, masks  # not held through the next batch's forward
         if max_images and n >= max_images:
             break
     res = gather_evaluator(evaluator).evaluate()
@@ -335,40 +410,48 @@ def run_eval(cfg, model, dataset_name: str, max_images: int = 0,
              short_edge: int = None, max_size: int = None, bucket=None,
              tta: bool = False, rank: Optional[int] = None,
              world_size: Optional[int] = None,
-             timings: Optional[List[dict]] = None):
+             timings: Optional[List[dict]] = None, ims_per_batch: int = 1):
     """Evaluator dispatch on the dataset's evaluator_type (reference:
     train_net.py:68-148 build_evaluator). Test resolution comes from
     cfg.input.min_size_test / max_size_test unless given. Rank and world
     size come from `torch.distributed` when it is initialized (one process
     otherwise) unless given. `timings`, when given, receives one
-    {"bucket", "ms"} per batch (`_record`)."""
+    {"bucket", "ms"} per batch (`_record`). `tta` applies to `sem_seg`
+    datasets only (as the root `run_eval` passes it only to
+    `eval_semantic`); elsewhere it is ignored, with a warning.
+    `ims_per_batch` images go through each forward (the root eval's 1 by
+    default); above 1 every image pads to the largest bucket, so that a
+    batch stacks."""
     import torch.distributed as dist
 
     from bm2f_tpu_torch.data import MetadataCatalog
 
-    if tta:
-        raise NotImplementedError("test-time augmentation (models/tta.py) is ROADMAP "
-                                  "queue 1 item 17")
     if short_edge is None:
         short_edge = cfg.input.min_size_test
     if max_size is None:
         max_size = cfg.input.max_size_test
     if bucket is None:
         bucket = bucket_ladder(max_size)
+    if ims_per_batch > 1:
+        bucket = (max(bucket),)
     if rank is None or world_size is None:
         on = dist.is_available() and dist.is_initialized()
         rank, world_size = (dist.get_rank(), dist.get_world_size()) if on else (0, 1)
 
     args = (cfg, model, dataset_name, max_images, short_edge, max_size, bucket,
             rank, world_size)
+    kw = dict(timings=timings, ims_per_batch=ims_per_batch)
     etype = getattr(MetadataCatalog.get(dataset_name), "evaluator_type", "coco")
+    if tta and etype != "sem_seg":
+        print(f"WARNING: --tta applies to sem_seg datasets only; {dataset_name} "
+              f"({etype}) is evaluated without it")
     if etype == "sem_seg":
-        return eval_semantic(*args, timings=timings)
+        return eval_semantic(*args, tta=tta, **kw)
     if etype == "coco_panoptic_seg":
-        return eval_panoptic(*args, timings=timings)
+        return eval_panoptic(*args, **kw)
     if etype == "lvis":
-        return eval_instance(*args, protocol="lvis", timings=timings)
-    return eval_instance(*args, timings=timings)
+        return eval_instance(*args, protocol="lvis", **kw)
+    return eval_instance(*args, **kw)
 
 
 def main(argv=None):
@@ -381,7 +464,7 @@ def main(argv=None):
                     help="d2 .pkl/.pth, a port checkpoint dir or an orbax dir")
     ap.add_argument("--max-images", type=int, default=0)
     ap.add_argument("--tta", action="store_true",
-                    help="multi-scale + flip ensembling (not ported: raises)")
+                    help="multi-scale + flip ensembling (sem_seg datasets only)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--set", action="append", default=[], type=parse_override,

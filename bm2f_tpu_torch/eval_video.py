@@ -24,8 +24,10 @@ taken on the device (the lower index first among equal scores, as
 `jax.lax.top_k`), and so is the restoration to the original size (the
 image eval's `_to_original`; the JAX eval does it on the host with the same
 index math). Only the tracks' binary masks go to the host, where the numpy
-evaluator (`evaluation/ytvis_eval.py`) scores them. Out of device memory,
-the eval raises, as the image eval does.
+evaluator (`evaluation/ytvis_eval.py`) scores them. Each clip's forward
+goes through `utils.memory.retry_if_oom`, as the root eval's does; a clip is
+one item, so out of device memory it frees the allocator's cache and raises,
+naming the clip's shape.
 """
 
 from __future__ import annotations
@@ -132,6 +134,7 @@ def run_video_eval(cfg, model, dataset_name: str, max_videos: int = 0,
     from bm2f_tpu_torch.eval import _to_original
     from bm2f_tpu_torch.evaluation.evaluator import gather_evaluator
     from bm2f_tpu_torch.evaluation.ytvis_eval import YTVISEvaluator
+    from bm2f_tpu_torch.utils.memory import retry_if_oom
 
     if short_edge is None:
         short_edge = cfg.input.min_size_test
@@ -145,6 +148,7 @@ def run_video_eval(cfg, model, dataset_name: str, max_videos: int = 0,
         rank, world_size = (dist.get_rank(), dist.get_world_size()) if on else (0, 1)
 
     topk = cfg.model.test.topk_per_video
+    predict = retry_if_oom(lambda clip, fv: predict_clip(cfg, model, clip, fv, topk))
     evaluator = YTVISEvaluator(cfg.model.num_classes)
     dicts = DatasetCatalog.get(dataset_name)
     shard = (len(dicts) + world_size - 1) // world_size
@@ -161,7 +165,7 @@ def run_video_eval(cfg, model, dataset_name: str, max_videos: int = 0,
         Tp, S = clip.shape[1:3]
         t1 = time.perf_counter()
 
-        scores, labels, sel = predict_clip(cfg, model, clip, fv, topk)
+        scores, labels, sel = predict(clip, fv)
         k = sel.shape[0]
         with torch.no_grad():
             full = _to_original(sel[:, :T].flatten(0, 1), (S, S), (nh, nw), (h, w))

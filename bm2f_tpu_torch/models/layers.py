@@ -13,12 +13,47 @@ in bf16 has its weights cast once instead (`cast_weights_`, called by
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from collections import OrderedDict
+from typing import Callable, Hashable, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+_CONSTANTS: "OrderedDict" = OrderedDict()
+_CONSTANTS_LOCK = threading.Lock()
+_CONSTANTS_CAP = 64
+
+
+def device_constant(key: Hashable, build: Callable, device, dtype) -> torch.Tensor:
+    """The constant `torch.tensor(build(), dtype, device)`, which callers
+    must not modify in place. A copy from pageable host memory to the card
+    waits for every launch queued before it, so a forward that made its
+    tables so would hold the host to the device; on the card each (key,
+    device, dtype) is copied once and kept (an LRU of 64), in a memory pool
+    of its own (`utils.memory.kept_allocations`). On the CPU it is built anew
+    each call."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return torch.tensor(build(), dtype=dtype)
+    k = (key, device, dtype)
+    with _CONSTANTS_LOCK:
+        t = _CONSTANTS.get(k)
+        if t is not None:
+            _CONSTANTS.move_to_end(k)
+            return t
+    from bm2f_tpu_torch.utils.memory import kept_allocations
+
+    with kept_allocations(device):
+        t = torch.tensor(build(), dtype=dtype, device=device)
+    with _CONSTANTS_LOCK:
+        _CONSTANTS[k] = t
+        while len(_CONSTANTS) > _CONSTANTS_CAP:
+            _CONSTANTS.popitem(last=False)
+    return t
 
 
 class FrozenBatchNorm(nn.Module):
@@ -98,10 +133,11 @@ class LayerNorm(nn.LayerNorm):
 
 
 class GroupNorm(nn.GroupNorm):
-    """flax GroupNorm(dtype=x.dtype): statistics and affine map in f32."""
+    """flax GroupNorm(dtype=x.dtype): statistics and affine map in f32 (in
+    f64 for an f64 input, as a reference computes)."""
 
     def forward(self, x):
-        return super().forward(x.float()).to(x.dtype)
+        return super().forward(at_least_f32(x)).to(x.dtype)
 
 
 def get_norm(name: str, features: int) -> Optional[nn.Module]:
@@ -194,7 +230,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
       weights U(+-1/sqrt(fan_in)); its `relative_position_bias_table` and
       `absolute_pos_embed` flax's truncated normal, std 0.02 (a standard
       normal cut at +-2, scaled to std 0.02);
-    - FPN adapters/layers and `mask_features`: c2_xavier_fill;
+    - FPN adapters/layers, `mask_features` and the convs that set
+      `c2_xavier_init` (MaskFormer-v1's `input_proj`s and per-pixel
+      classifier): c2_xavier_fill;
     - `mask_embed` weights: torch Linear default U(+-1/sqrt(fan_in)), bias 0;
     - deformable `sampling_offsets`/`attention_weights`: weights 0, offset
       bias on the ring (reference ms_deform_attn.py:66-74);
@@ -231,7 +269,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             fan_in, _ = _fans(p)
             b = 1.0 / fan_in**0.5
             p.uniform_(-b, b, generator=generator)
-        elif any(f".{k}" in f".{name}" for k in ("adapter_", "layer_", "mask_features.")):
+        elif (getattr(owner, "c2_xavier_init", False)
+              or any(f".{k}" in f".{name}" for k in ("adapter_", "layer_", "mask_features."))):
             fan_in, _ = _fans(p)
             b = (3.0 / fan_in) ** 0.5
             p.uniform_(-b, b, generator=generator)

@@ -22,8 +22,12 @@ import torch
 import torch.nn as nn
 
 from bm2f_tpu_torch.config import Config, ModelConfig
-from bm2f_tpu_torch.models.layers import cast_weights_, init_parameters
-from bm2f_tpu_torch.models.pixel_decoder import MSDeformAttnPixelDecoder
+from bm2f_tpu_torch.models.layers import cast_weights_, device_constant, init_parameters
+from bm2f_tpu_torch.models.maskformer_v1 import (
+    StandardTransformerDecoder,
+    TransformerEncoderPixelDecoder,
+)
+from bm2f_tpu_torch.models.pixel_decoder import BasePixelDecoder, MSDeformAttnPixelDecoder
 from bm2f_tpu_torch.models.resnet import (
     RESNET_FEATURE_CHANNELS,
     RESNET_FEATURE_STRIDES,
@@ -39,30 +43,40 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def normalize_images(images: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """(B, H, W, 3) uint8/float RGB -> normalized float32."""
-    mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=images.device)
-    std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=images.device)
+    mean, std = (device_constant(("pixel", tuple(v)), lambda v=v: list(v), images.device,
+                                 torch.float32) for v in (cfg.pixel_mean, cfg.pixel_std))
     return (images.float() - mean) / std
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    """Parts of the JAX package that later slices of the port bring."""
+PIXEL_DECODERS = ("msdeform", "transformer_fpn", "fpn")
+DECODERS = ("multi_scale_masked", "standard")
+
+
+def _check_supported(cfg: ModelConfig, pixel_decoders=PIXEL_DECODERS,
+                     decoders=DECODERS) -> None:
+    """Names neither package builds raise, as do the parts a model class
+    does not build (the video model builds only `msdeform` and
+    `multi_scale_masked`, as the JAX video head does)."""
     if cfg.backbone.name not in ("resnet", "swin"):
         raise ValueError(f"backbone {cfg.backbone.name!r}: one of 'resnet', 'swin'")
-    if cfg.pixel_decoder.name != "msdeform":
-        raise NotImplementedError(
-            f"pixel decoder {cfg.pixel_decoder.name!r}: the FPN and "
-            "transformer-FPN decoders are ROADMAP queue 1 item 17")
-    if cfg.decoder.name != "multi_scale_masked":
-        raise NotImplementedError(
-            f"decoder {cfg.decoder.name!r}: the standard decoder is ROADMAP "
-            "queue 1 item 17")
+    if cfg.pixel_decoder.name not in pixel_decoders:
+        raise ValueError(f"pixel decoder {cfg.pixel_decoder.name!r}: one of "
+                         f"{list(pixel_decoders)}")
+    if cfg.decoder.name not in decoders:
+        raise ValueError(f"decoder {cfg.decoder.name!r}: one of {list(decoders)}")
     if cfg.dtype not in DTYPES:
         raise ValueError(f"model.dtype {cfg.dtype!r}: one of {sorted(DTYPES)}")
 
 
 class MaskFormerHead(nn.Module):
     """Pixel decoder + transformer predictor (reference:
-    modeling/meta_arch/mask_former_head.py:115-132)."""
+    modeling/meta_arch/mask_former_head.py:115-132), dispatched on the
+    config's names as the JAX `MaskFormerHead` does
+    (bm2f_tpu/models/maskformer.py:58-92): the pixel decoder is `msdeform`,
+    `transformer_fpn` or `fpn` (in f32 when `pixel_decoder_f32`), the
+    predictor `multi_scale_masked` (over the three coarsest levels) or
+    `standard` (MaskFormer-v1's, over the transformer feature when the pixel
+    decoder has one, else res5, in the model dtype)."""
 
     predictor_cls = MultiScaleMaskedTransformerDecoder
 
@@ -74,17 +88,33 @@ class MaskFormerHead(nn.Module):
             in_channels = {"res2": ed, "res3": 2 * ed, "res4": 4 * ed, "res5": 8 * ed}
         else:
             in_channels = RESNET_FEATURE_CHANNELS
-        self.pixel_decoder = MSDeformAttnPixelDecoder(
+        pd_cls = {"msdeform": MSDeformAttnPixelDecoder, "fpn": BasePixelDecoder,
+                  "transformer_fpn": TransformerEncoderPixelDecoder}[cfg.pixel_decoder.name]
+        self.pixel_decoder = pd_cls(
             cfg.pixel_decoder, in_channels, RESNET_FEATURE_STRIDES,
             dtype=torch.float32 if cfg.pixel_decoder_f32 else dtype)
         C = cfg.pixel_decoder.conv_dim
-        self.predictor = self.predictor_cls(
-            cfg.decoder, cfg.num_classes, [C] * cfg.decoder.num_feature_levels,
-            dtype=dtype)
+        self.standard = cfg.decoder.name == "standard"
+        # only the transformer-FPN's second output feeds "standard" (the JAX
+        # head drops msdeform's)
+        self.reads_transformer_feature = cfg.pixel_decoder.name == "transformer_fpn"
+        if self.standard:
+            top = C if self.reads_transformer_feature else in_channels["res5"]
+            self.predictor = StandardTransformerDecoder(cfg.decoder, cfg.num_classes, top,
+                                                        dtype=dtype)
+        else:
+            self.predictor = self.predictor_cls(
+                cfg.decoder, cfg.num_classes, [C] * cfg.decoder.num_feature_levels,
+                dtype=dtype)
 
     def forward(self, features: Dict[str, torch.Tensor], deform_impl: str = "auto"):
-        mask_features, _, ms_feats = self.pixel_decoder(features, deform_impl)
-        out = self.predictor(ms_feats, mask_features)
+        mask_features, transformer_feature, ms_feats = self.pixel_decoder(
+            features, deform_impl)
+        if self.standard:
+            x = transformer_feature if self.reads_transformer_feature else features["res5"]
+            out = self.predictor(x.to(self.predictor.dtype), mask_features)
+        else:
+            out = self.predictor(ms_feats, mask_features)
         out["mask_features"] = mask_features.permute(0, 2, 3, 1)  # NHWC, as JAX
         return out
 
@@ -94,10 +124,12 @@ class MaskFormer(nn.Module):
     `cfg.size_divisibility`. Output keys and shapes as the JAX model's."""
 
     head_cls = MaskFormerHead
+    pixel_decoders = PIXEL_DECODERS
+    decoders = DECODERS
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        _check_supported(cfg)
+        _check_supported(cfg, self.pixel_decoders, self.decoders)
         self.cfg = cfg
         dtype = DTYPES[cfg.dtype]
         if cfg.backbone.name == "swin":
@@ -175,7 +207,8 @@ def instance_inference(
     masks = masks_logits > 0
     valid = torch.ones_like(scores, dtype=torch.bool)
     if thing_mask is not None:
-        tm = torch.tensor(thing_mask, dtype=torch.bool, device=labels.device)
+        tm = device_constant(("thing_mask", tuple(thing_mask)), lambda: list(thing_mask),
+                             labels.device, torch.bool)
         valid = valid & tm[labels]
     # mask-probability rescoring (reference :621)
     probs = torch.sigmoid(masks_logits)
@@ -233,7 +266,8 @@ def panoptic_inference(
         & (mask_area / original_area.clamp(min=1) >= overlap_threshold)
     )
 
-    tm = torch.tensor(thing_mask, dtype=torch.bool, device=dev)
+    tm = device_constant(("thing_mask", tuple(thing_mask)), lambda: list(thing_mask),
+                         dev, torch.bool)
     isthing = tm[labels.clamp(0, num_classes - 1)] & (labels != num_classes)
 
     # stuff merging: canonical = smallest valid query index of the same class

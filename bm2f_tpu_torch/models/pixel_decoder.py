@@ -1,5 +1,6 @@
 """MSDeformAttn pixel decoder — the default pixel decoder of Mask2Former
-(reference: mask2former/modeling/pixel_decoder/msdeformattn.py:165-358).
+(reference: mask2former/modeling/pixel_decoder/msdeformattn.py:165-358) —
+and MaskFormer-v1's FPN `BasePixelDecoder` (fpn.py:38-204).
 
 - NCHW feature maps, batch-first (B, S, C) sequences;
 - the deformable-attention core is `bm2f_tpu_torch.ops.ms_deform_attn`
@@ -31,9 +32,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bm2f_tpu_torch.config import PixelDecoderConfig
-from bm2f_tpu_torch.models.layers import Conv2d, GroupNorm, LayerNorm, Linear, cast, get_norm
+from bm2f_tpu_torch.models.layers import (
+    Conv2d,
+    GroupNorm,
+    LayerNorm,
+    Linear,
+    cast,
+    device_constant,
+    get_norm,
+)
 from bm2f_tpu_torch.models.position_encoding import sine_position_embedding_2d
-from bm2f_tpu_torch.ops import ms_deform_attn, resize_bilinear
+from bm2f_tpu_torch.ops import ms_deform_attn, resize_bilinear, resize_nearest
 from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_plain
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -82,8 +91,9 @@ class MSDeformAttnModule(nn.Module):
         attn = self.attention_weights(query).view(B, Q, M, L * P)
         attn = torch.softmax(attn.float(), dim=-1).view(B, Q, M, L, P)  # f32
         # per-level normalizer (W, H) (reference ms_deform_attn.py:107-109)
-        normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                  dtype=torch.float32, device=query.device)
+        shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+        normalizer = device_constant(("wh", shapes), lambda: [[w, h] for h, w in shapes],
+                                     query.device, torch.float32)
         loc = (reference_points[None, :, None, :, None, :]
                + offsets.float() / normalizer[None, None, None, :, None, :])
         if deform_impl == "plain":
@@ -134,7 +144,8 @@ def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
     == 1): pixel centres normalized per level, broadcast to all sampling
     levels. Returns (S, L, 2) (x, y)."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    return torch.tensor(_reference_points(shapes), device=device)
+    return device_constant(("reference_points", shapes), lambda: _reference_points(shapes),
+                           device, torch.float32)
 
 
 class _Encoder(nn.Module):
@@ -226,3 +237,53 @@ class MSDeformAttnPixelDecoder(nn.Module):
 
         mask_features = self.mask_features(out[-1])
         return mask_features, out[0], out[:3]
+
+
+class BasePixelDecoder(nn.Module):
+    """Vanilla FPN pixel decoder (reference: fpn.py:38-204), as the JAX
+    package's `BasePixelDecoder` computes it: from res5 down to res2, a 3x3
+    output conv on the coarsest feature, then at each finer level a 1x1
+    lateral conv plus the **nearest**-resized coarser output, through a 3x3
+    output conv; every conv is followed by GroupNorm(32) (a bias only when
+    `cfg.norm` is empty) and each output by a ReLU. A **3x3** conv gives the
+    mask features (msdeform's is 1x1). Returns (mask_features, None,
+    multi_scale) with multi_scale the three coarsest outputs, coarsest
+    first. It has no deformable attention: `deform_impl` is accepted, as
+    every pixel decoder's forward takes it, and has nothing to choose.
+
+    Names follow upstream: `layer_{k}` and `adapter_{k}` with k = 1 at res2
+    (the JAX package counts from res5: its `layer_0` is `layer_4` here)."""
+
+    def __init__(self, cfg: PixelDecoderConfig, in_channels: Dict[str, int],
+                 in_strides: Dict[str, int], dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        C = cfg.conv_dim
+        self.in_features = sorted(in_strides, key=in_strides.get)  # res2..res5
+        n = len(self.in_features)
+        use_bias = cfg.norm in ("", None, "none")
+        for k, f in enumerate(self.in_features, start=1):
+            if k < n:
+                self.add_module(f"adapter_{k}", Conv2d(
+                    in_channels[f], C, 1, bias=use_bias, norm=GroupNorm(32, C, eps=1e-5)))
+            self.add_module(f"layer_{k}", Conv2d(
+                C if k < n else in_channels[f], C, 3, padding=1, bias=use_bias,
+                norm=GroupNorm(32, C, eps=1e-5)))
+        self.mask_features = Conv2d(C, cfg.mask_dim, 3, padding=1)
+
+    def encode_top(self, features: Dict[str, torch.Tensor]):
+        """(the input of the coarsest output conv, the transformer feature)."""
+        return features[self.in_features[-1]].to(self.dtype), None
+
+    def forward(self, features: Dict[str, torch.Tensor], deform_impl: str = "auto"):
+        n = len(self.in_features)
+        top, transformer_feature = self.encode_top(features)
+        y = F.relu(getattr(self, f"layer_{n}")(top))
+        out = [y]
+        for k in range(n - 1, 0, -1):
+            lat = getattr(self, f"adapter_{k}")(features[self.in_features[k - 1]].to(self.dtype))
+            y = lat + resize_nearest(y, lat.shape[-2], lat.shape[-1])
+            y = F.relu(getattr(self, f"layer_{k}")(y))
+            out.append(y)
+        return self.mask_features(y), transformer_feature, out[:3]

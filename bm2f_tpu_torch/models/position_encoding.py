@@ -85,10 +85,13 @@ def sine_position_embedding_2d(
     device="cpu",
     dtype=torch.float32,
 ) -> torch.Tensor:
-    """Returns (H, W, 2*num_pos_feats) with channel order [y-feats, x-feats]."""
-    pos = _table(int(h), int(w), int(num_pos_feats), float(temperature),
-                 bool(normalize))
-    return torch.tensor(pos, device=device, dtype=dtype)
+    """Returns (H, W, 2*num_pos_feats) with channel order [y-feats, x-feats]
+    (`layers.device_constant`: on the card, kept and not to be modified in
+    place)."""
+    from bm2f_tpu_torch.models.layers import device_constant
+
+    args = (int(h), int(w), int(num_pos_feats), float(temperature), bool(normalize))
+    return device_constant(("sine_2d",) + args, lambda: _table(*args), device, dtype)
 
 
 def sine_position_embedding_3d(

@@ -64,17 +64,20 @@ def shift_attn_mask(hp: int, wp: int, window: int, shift: int, device: torch.dev
     """Additive mask (nW, w*w, w*w), -100 between tokens of different
     pre-shift zones. A zone id per row and column is 0 on [0, n-w), 1 on
     [n-w, n-shift) and 2 on the last `shift`; the region id is 3 row + col,
-    which orders the regions as the reference's counter does."""
+    which orders the regions as the reference's counter does. Built in the
+    memory pool of kept tables (`utils.memory.kept_allocations`)."""
+    from bm2f_tpu_torch.utils.memory import kept_allocations
 
     def zone(n):
         i = torch.arange(n, device=device)
         return (i >= n - window).long() + (i >= n - shift).long()
 
-    ids = zone(hp)[:, None] * 3 + zone(wp)[None, :]
-    win = ids.reshape(hp // window, window, wp // window, window)
-    win = win.permute(0, 2, 1, 3).reshape(-1, window * window)
-    diff = win[:, :, None] != win[:, None, :]
-    return torch.where(diff, -100.0, 0.0).to(dtype)
+    with kept_allocations(device):
+        ids = zone(hp)[:, None] * 3 + zone(wp)[None, :]
+        win = ids.reshape(hp // window, window, wp // window, window)
+        win = win.permute(0, 2, 1, 3).reshape(-1, window * window)
+        diff = win[:, :, None] != win[:, None, :]
+        return torch.where(diff, -100.0, 0.0).to(dtype)
 
 
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:

@@ -368,9 +368,14 @@ def d_value_by_destination(plan: DestinationPlan, spatial_shapes, grad_out, M: i
 @functools.lru_cache(maxsize=64)
 def _device_plan(spatial_shapes, Q: int, cells: bool, device):
     """`tile_plan` with its tables on `device`, built once per shape:
-    (tile_ptr, tile_q, n_tiles)."""
+    (tile_ptr, tile_q, n_tiles), in a memory pool of their own
+    (`utils.memory.kept_allocations`)."""
+    from bm2f_tpu_torch.utils.memory import kept_allocations
+
     plan = tile_plan(spatial_shapes, Q, cells)
-    return (*(torch.from_numpy(a).to(device) for a in plan), len(plan.tile_ptr) - 1)
+    with kept_allocations(device):
+        tables = tuple(torch.from_numpy(a).to(device) for a in plan)
+    return (*tables, len(plan.tile_ptr) - 1)
 
 
 def _cuda_dims(value, spatial_shapes, sampling_locations, attention_weights,

@@ -1,6 +1,11 @@
 """Simple predictor API for the port (the counterpart of the root
 `predict.py`): loads a config and weights once; `predict(image)` returns the
-semantic, instance and panoptic outputs of one image."""
+semantic, instance and panoptic outputs of one image and a side-by-side
+visualization (panoptic | instance | semantic).
+
+    python -m bm2f_tpu_torch.predict --input img.jpg [--output prediction.png] \\
+        [--config coco_panoptic_r50] [--weights W] [--device cuda] [--set KEY=VALUE ...]
+"""
 
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from bm2f_tpu_torch.utils.precision import f32_scope
 
 
 class Predictor:
-    def setup(self, config: str = "coco_instance_r50", weights: str = "",
+    def setup(self, config: str = "coco_panoptic_r50", weights: str = "",
               device="cuda", seed: int = 0,
               overrides: Optional[Mapping[str, Any]] = None) -> None:
         """No weights: seeded random init. Otherwise `weights` is a path
@@ -42,13 +47,20 @@ class Predictor:
             self.model.load_state_dict(load_weights(weights, self.cfg), strict=True)
         self.model.cast_weights_for_inference_()
 
-    @torch.no_grad()
     def predict(self, image: np.ndarray) -> Dict:
+        """`infer(image)` and its `"visualization"` (`visualize`)."""
+        out = self.infer(image)
+        out["visualization"] = self.visualize(image, out)
+        return out
+
+    @torch.no_grad()
+    def infer(self, image: np.ndarray) -> Dict:
         """image: (H, W, 3) RGB. Pads to `size_divisibility`, runs the
         network, resizes the masks to the padded size and crops, then runs
         the three inference modes on the f32 predictions (in either model
         dtype); the outputs on the host are f32. An f32 model computes in
-        f32 (no TF32), whatever the global flags say."""
+        f32 (no TF32), whatever the global flags say. The panoptic fusion
+        treats every class as a thing, as the root `Predictor` does."""
         H, W = image.shape[:2]
         d = self.cfg.model.size_divisibility
         ph, pw = (H + d - 1) // d * d, (W + d - 1) // d * d
@@ -74,3 +86,47 @@ class Predictor:
             "instances": {k: v.cpu().numpy() for k, v in inst.items()},
             "panoptic": (seg_map, seg_info),
         }
+
+    @staticmethod
+    def visualize(image: np.ndarray, out: Dict) -> np.ndarray:
+        """(H, 3W, 3) uint8, as root predict.py:88-101 draws it: the panoptic
+        map's palette colours over the image, then `demo.draw_instances`,
+        then `demo.draw_semantic`, side by side. Host time."""
+        from bm2f_tpu_torch.demo import color_palette, draw_instances, draw_semantic
+
+        inst = out["instances"]
+        seg_map, _ = out["panoptic"]
+        vis_sem = draw_semantic(image, out["semantic"])
+        vis_inst = draw_instances(image, inst["masks"], inst["labels"], inst["scores"])
+        palette = color_palette(seg_map.max() + 1)
+        vis_pan = (0.5 * image + 0.5 * palette[seg_map]).astype(np.uint8)
+        return np.concatenate([vis_pan, vis_inst, vis_sem], axis=1)
+
+
+def main(argv=None) -> str:
+    import argparse
+
+    from PIL import Image
+
+    from bm2f_tpu_torch.config import parse_override
+    from bm2f_tpu_torch.data.mappers import read_image
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="coco_panoptic_r50")
+    ap.add_argument("--weights", default="")
+    ap.add_argument("--input", required=True)
+    ap.add_argument("--output", default="prediction.png")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--set", action="append", default=[], type=parse_override,
+                    metavar="KEY=VALUE", help="a config field, e.g. model.dtype=bfloat16")
+    args = ap.parse_args(argv)
+    p = Predictor()
+    p.setup(args.config, args.weights, device=args.device, overrides=dict(args.set))
+    out = p.predict(read_image(args.input))
+    Image.fromarray(out["visualization"]).save(args.output)
+    print(f"wrote {args.output}")
+    return args.output
+
+
+if __name__ == "__main__":
+    main()

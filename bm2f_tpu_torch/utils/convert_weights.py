@@ -18,7 +18,13 @@
   (its head's parts named `sem_seg_head_pixel_decoder` and
   `sem_seg_head_predictor`, its decoder scanned in `rounds` or unrolled)
   maps onto the same keys: the port's video model carries the image
-  model's names.
+  model's names. The MaskFormer-v1 trees (`fpn` and `transformer_fpn`
+  pixel decoders, the `standard` decoder) take upstream MaskFormer's names:
+  the FPN's `layer_{j}`/`adapter_{j}`, counted from res5 in JAX, become
+  `layer_{4-j}`/`adapter_{4-j}` (counted from res2), the transformers'
+  `layer_{i}` `transformer.encoder.layers.{i}` and
+  `transformer.decoder.layers.{i}`; `jax_head_variables_to_state_dict`
+  carries the per-pixel heads' trees.
 - `load_weights`: any of those on disk, or a checkpoint directory of the
   port, by what the path holds.
 """
@@ -119,6 +125,28 @@ _MODULE_RULES = [
     (rf"{_PR}/input_proj_(\d+)", r"sem_seg_head.predictor.input_proj.\1"),
     (rf"{_PR}/(cross_attn|self_attn|ffn)_(\d+)/(.+)", lambda m: (
         f"sem_seg_head.predictor.{_SUB[m[1]]}.{m[2]}.{m[3].replace('/', '.')}")),
+    # MaskFormer-v1: the transformer-FPN's encoder, the standard decoder, the
+    # per-pixel classifier
+    (rf"{_PD}/input_proj", "sem_seg_head.pixel_decoder.input_proj"),
+    (rf"{_PD}/transformer/layer_(\d+)/(.+)", lambda m: (
+        f"sem_seg_head.pixel_decoder.transformer.encoder.layers.{m[1]}."
+        f"{m[2].replace('/', '.')}")),
+    (rf"{_PD}/transformer/norm", "sem_seg_head.pixel_decoder.transformer.encoder.norm"),
+    (rf"{_PR}/decoder/layer_(\d+)/(.+)", lambda m: (
+        f"sem_seg_head.predictor.transformer.decoder.layers.{m[1]}."
+        f"{m[2].replace('/', '.')}")),
+    (rf"{_PR}/decoder/norm", "sem_seg_head.predictor.transformer.decoder.norm"),
+    (rf"{_PR}/input_proj", "sem_seg_head.predictor.input_proj"),
+    (rf"{_PR}", "sem_seg_head.predictor"),
+]
+# the FPN pixel decoders count their levels from res5 in JAX (`layer_0` on
+# res5), from res2 in upstream MaskFormer (`layer_4` on res5)
+_FPN_LEVELS = 4
+_FPN_RULES = [
+    (rf"{_PD}/(adapter|layer)_(\d+)_conv", lambda m: (
+        f"sem_seg_head.pixel_decoder.{m[1]}_{_FPN_LEVELS - int(m[2])}")),
+    (rf"{_PD}/(adapter|layer)_(\d+)_norm", lambda m: (
+        f"sem_seg_head.pixel_decoder.{m[1]}_{_FPN_LEVELS - int(m[2])}.norm")),
 ]
 # parameters held directly by a module: JAX path -> port key
 _DIRECT = {
@@ -160,8 +188,8 @@ def _leaf(name: str, value: np.ndarray, frozen: bool) -> Tuple[str, np.ndarray]:
     return name, value
 
 
-def _module(path: str) -> str:
-    for pattern, repl in _MODULE_RULES:
+def _module(path: str, fpn: bool = False) -> str:
+    for pattern, repl in (_FPN_RULES + _MODULE_RULES if fpn else _MODULE_RULES):
         m = re.fullmatch(pattern, path)
         if m:
             return repl(m) if callable(repl) else m.expand(repl)
@@ -169,7 +197,7 @@ def _module(path: str) -> str:
 
 
 def _convert_leaf(path: str, value: np.ndarray, frozen: bool,
-                  n_levels: int) -> Iterator[Tuple[str, np.ndarray]]:
+                  n_levels: int, fpn: bool = False) -> Iterator[Tuple[str, np.ndarray]]:
     if path in _DIRECT:
         yield _DIRECT[path], value
         return
@@ -199,12 +227,15 @@ def _convert_leaf(path: str, value: np.ndarray, frozen: bool,
             yield f"sem_seg_head.predictor.{_SUB[rnd[1]]}.{i}{rest}.{key}", v
     else:
         key, v = _leaf(name, value, frozen)
-        yield f"{_module(mod)}.{key}", v
+        yield f"{_module(mod, fpn)}.{key}", v
 
 
-def jax_tree_to_numpy(variables: Mapping, n_levels: int = 3) -> Dict[str, np.ndarray]:
+def jax_tree_to_numpy(variables: Mapping, n_levels: int = 3,
+                      pixel_decoder: str = "msdeform") -> Dict[str, np.ndarray]:
     """Every leaf of a JAX {"params", "frozen"} tree under its port key, in
-    the port's layout; no check against a model."""
+    the port's layout; no check against a model. `pixel_decoder` names the
+    tree's (`model.pixel_decoder.name`): the FPN decoders number their
+    levels otherwise."""
     if n_levels != 3:  # the JAX converter's round layout assumes 3 levels
         raise ValueError(f"num_feature_levels must be 3, got {n_levels}")
     unknown = set(variables) - {"params", "frozen"}
@@ -215,7 +246,8 @@ def jax_tree_to_numpy(variables: Mapping, n_levels: int = 3) -> Dict[str, np.nda
         for path, value in _flatten(variables.get(coll, {})):
             head, sep, rest = path.partition("/")
             path = _VIDEO_HEAD.get(head, head) + sep + rest
-            for key, v in _convert_leaf(path, value, frozen, n_levels):
+            for key, v in _convert_leaf(path, value, frozen, n_levels,
+                                        fpn=pixel_decoder != "msdeform"):
                 if key in out:
                     raise KeyError(f"two JAX leaves map to {key!r}")
                 out[key] = v
@@ -230,9 +262,26 @@ def jax_variables_to_state_dict(variables: Mapping, cfg) -> Dict[str, torch.Tens
     from bm2f_tpu_torch.models.maskformer import MaskFormer
 
     model_cfg = getattr(cfg, "model", cfg)
-    out = jax_tree_to_numpy(variables, model_cfg.decoder.num_feature_levels)
+    out = jax_tree_to_numpy(variables, model_cfg.decoder.num_feature_levels,
+                            model_cfg.pixel_decoder.name)
     with torch.device("meta"):
         expected = {k: tuple(v.shape) for k, v in MaskFormer(model_cfg).state_dict().items()}
+    return _checked(out, expected)
+
+
+def jax_head_variables_to_state_dict(variables: Mapping,
+                                     head: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A JAX per-pixel head's tree (`PerPixelBaselineHead`,
+    `PerPixelBaselinePlusHead`: {"params": {"pixel_decoder", "predictor"}})
+    as the `state_dict` of the port's `head` (the same class), checked as
+    `jax_variables_to_state_dict` checks a model."""
+    wrapped = {coll: {"sem_seg_head": tree} for coll, tree in variables.items()}
+    out = {k[len("sem_seg_head."):]: v
+           for k, v in jax_tree_to_numpy(wrapped, pixel_decoder="fpn").items()}
+    return _checked(out, {k: tuple(v.shape) for k, v in head.state_dict().items()})
+
+
+def _checked(out: Dict[str, np.ndarray], expected: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
     missing = sorted(set(expected) - set(out))
     extra = sorted(set(out) - set(expected))
     if missing or extra:

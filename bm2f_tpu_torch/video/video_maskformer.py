@@ -36,6 +36,10 @@ class VideoMaskFormer(MaskFormer):
     w4, mask_dim)."""
 
     head_cls = VideoMaskFormerHead
+    # the JAX video head builds these two whatever the config names
+    # (bm2f_tpu/video/video_maskformer.py:57-72); other names raise here
+    pixel_decoders = ("msdeform",)
+    decoders = ("multi_scale_masked",)
 
     def forward(self, images: torch.Tensor, frame_valid: Optional[torch.Tensor] = None,
                 deform_impl: str = "auto") -> Dict[str, torch.Tensor]:
@@ -67,13 +71,19 @@ def topk_stable(x: torch.Tensor, k: int):
     return values[:k], idx[:k]
 
 
+def track_topk(mask_cls: torch.Tensor, *, num_classes: int, topk: int = 10):
+    """The tracks' (scores, labels, queries): the top-k of the flattened
+    (Q x K) score matrix of mask_cls (Q, K+1). The masks take no part."""
+    flat = torch.softmax(mask_cls, dim=-1)[:, :-1].reshape(-1)
+    scores, idx = topk_stable(flat, topk)
+    return scores, idx % num_classes, idx // num_classes
+
+
 def inference_video(mask_cls: torch.Tensor, mask_pred: torch.Tensor, *,
                     num_classes: int, topk: int = 10) -> Dict[str, torch.Tensor]:
     """Track inference: top-k over the flattened (Q x K) score matrix, each
     track the thresholded per-frame masks of its query.
     mask_cls (Q, K+1); mask_pred (Q, T, H, W) logits. Returns scores (k,),
     labels (k,), masks (k, T, H, W) bool."""
-    flat = torch.softmax(mask_cls, dim=-1)[:, :-1].reshape(-1)
-    scores, idx = topk_stable(flat, topk)
-    return {"scores": scores, "labels": idx % num_classes,
-            "masks": mask_pred[idx // num_classes] > 0.0}
+    scores, labels, queries = track_topk(mask_cls, num_classes=num_classes, topk=topk)
+    return {"scores": scores, "labels": labels, "masks": mask_pred[queries] > 0.0}

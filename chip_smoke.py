@@ -183,8 +183,41 @@ Phases, each printing its own line:
      the 8-frame bucket) twice, every count set to 0 just before and read
      just after (K1 6 launches a clip); first and warm time, peak memory,
      K1 on the clip's first-layer inputs;
+  A-F. the user entry points and the MaskFormer-v1 models, each where its
+     data lives (B, D and E after 26 on phase 19's split, C after 37 on
+     phase 27's, A and F after the video phases), every count set to 0
+     just before each run and read just after:
+  A. the `Predictor` with its default config (`coco_panoptic_r50`) at full
+     width: 3 requests at 800x800 with the visualization (H, 3W, 3) uint8,
+     the drawing timed apart, then `python -m bm2f_tpu_torch.predict`
+     writing one (K1 6 launches a request);
+  B. `python -m bm2f_tpu_torch.demo` (its `main`) over phase 19's images
+     at their native sizes for each task, one PNG an image; the panoptic
+     task at depth 1 and 2: the pipeline's wall time against the sum of its
+     stages (K1 6 launches an image);
+  C. `python -m bm2f_tpu_torch.demo_video` on phase 27's 19-frame clip at
+     its native 1280x720: one PNG a frame, time, peak memory (K1 6
+     launches, one forward);
+  D. `run_eval(tta=True)` on `ade20k_semantic_r50` over 3 images of phase
+     19's ade20k_sem_seg_val (12 forwards an image, K1 72 launches an
+     image), images/s, peak memory; one image's averaged probabilities
+     through K1 against the plain path;
+  E. `retry_if_oom` forced: the process capped between the peaks of an
+     eval batch of 4 images at the 1344 bucket and of its half, so that the
+     batch splits (at least once) and matches the uncapped run, `run_eval`
+     with the same AP capped and not; an image that cannot fit raises at
+     batch 1; the cap lifted;
+  F. MaskFormer-v1 on `coco_instance_r50`: the FPN pixel decoder, and
+     `transformer_fpn` + `standard` at MaskFormer-v1's setting: 3 f32
+     requests and 1 bf16 request at 800x800, the f32 forward against an
+     f64 copy (V1_F64_REL), 3 train steps at B=2, 1024x1024 (no K1 or K2
+     launch);
  38. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
+
+Every request of the `Predictor` (phases 5, 14, 35, A, F) draws its
+visualization; the drawing, host time, is in the request's latency and is
+logged apart (`draw_ms`).
 
 Any failure raises and the script exits non-zero. It imports nothing of JAX
 or of the JAX package. TF32 is off for matmuls and convolutions throughout.
@@ -315,6 +348,41 @@ SWIN_F64_REL = 2e-4
 PROBE_LEVELS, PROBE_ITERS = (625, 2500, 10000), 20
 # the probe's row of each kernel in the kernels line
 PROBE_ROW = dict(S=2500, addresses="random")
+# the user entry points and the MaskFormer-v1 models (phases A-F): the
+# predictor's and the demo's default panoptic config; the video demo's clip
+# (phase 27's 19-frame video at its native 1280x720); the TTA eval's config
+# and images of phase 19's ade20k_sem_seg_val (12 forwards an image: 6
+# scales, each flipped); the eval batch that phase E makes run out of memory
+# at the 1344 bucket
+PANOPTIC_CONFIG = "coco_panoptic_r50"
+DEMO_VIDEO_FRAMES = 19
+TTA_CONFIG, TTA_IMAGES, TTA_FORWARDS = "ade20k_semantic_r50", 3, 12
+OOM_BATCH, OOM_BUCKET = 4, 1344
+# phase E's caps: the memory kept before the batch plus these shares of its
+# half's measured peak, tried in turn until the batch splits
+OOM_HALF_SHARES = (1.0, 0.85, 0.7, 0.55)
+# the capped eval's cap: half the half's peak more (it also holds split
+# outputs and restores masks; the batch, needing over twice what did not
+# fit in a half, still cannot fit)
+OOM_EVAL_EXTRA_SHARE = 0.5
+# phase F: the FPN pixel decoder under the masked decoder, and MaskFormer-
+# v1's own setting (a 6-layer post-norm encoder at res5, 6 DETR decoder
+# layers, 100 queries, width 256, FFN 2048), on `coco_instance_r50`
+V1_RUNS = {
+    "fpn": {"model.pixel_decoder.name": "fpn"},
+    "transformer_fpn_standard": {
+        "model.pixel_decoder.name": "transformer_fpn", "model.decoder.name": "standard",
+        "model.pixel_decoder.transformer_enc_layers": 6,
+        "model.pixel_decoder.transformer_dim_feedforward": 2048,
+        "model.decoder.dec_layers": 6, "model.decoder.num_queries": 100,
+        "model.decoder.hidden_dim": 256, "model.decoder.dim_feedforward": 2048},
+}
+# a v1 model's f32 request at 800x800 against its f64 copy on the card,
+# norm-relative on pred_logits and pred_masks: f32 rounds each product of up
+# to 9 x 2048 terms (~sqrt(K) 6e-8 relative) through the ResNet, the FPN and
+# 12 transformer layers that the norms renormalise: 1e-6 to 1e-5; TF32
+# anywhere (u = 4.9e-4) would put 1e-3 there. Held as Swin-L's backbone is
+V1_F64_REL = 2e-4
 
 
 def log(phase: str, **fields) -> None:
@@ -530,10 +598,21 @@ def reset_counts():
         fn.launches = fn.launches_bf16 = 0
 
 
-def serve(pred, images, path: str) -> list:
+def serve(pred, images, path: str, draws: list = None) -> list:
     """`pred` answers `images`, each request ending in a synchronise; checks
-    the outputs' shapes and values. Returns the latencies in ms."""
-    latencies = []
+    the outputs' shapes and values, the visualization (H, 3W, 3) uint8
+    included. Returns the latencies in ms (the drawing, host time,
+    included); `draws`, when given, receives each request's drawing in ms."""
+    latencies, draw_ms = [], []
+    visualize = pred.visualize
+
+    def timed_visualize(image, out):
+        t = time.perf_counter()
+        vis = visualize(image, out)
+        draw_ms.append((time.perf_counter() - t) * 1e3)
+        return vis
+
+    pred.visualize = timed_visualize
     for img in images:
         t0 = time.perf_counter()
         out = pred.predict(img)
@@ -549,9 +628,15 @@ def serve(pred, images, path: str) -> list:
             raise AssertionError(f"instance output {inst['masks'].shape} bad")
         if out["panoptic"][0].shape != (H, W):
             raise AssertionError("panoptic output shape bad")
-    for img, ms in zip(images, latencies):
+        vis = out["visualization"]
+        if vis.shape != (H, 3 * W, 3) or vis.dtype != np.uint8:
+            raise AssertionError(f"visualization {vis.shape} {vis.dtype} bad")
+    del pred.visualize
+    for img, ms, dms in zip(images, latencies, draw_ms):
         log("request", path=path, size="x".join(map(str, img.shape[:2])),
-            latency_ms=f"{ms:.2f}")
+            latency_ms=f"{ms:.2f}", draw_ms=f"{dms:.2f}")
+    if draws is not None:
+        draws.extend(draw_ms)
     return latencies
 
 
@@ -2292,6 +2377,445 @@ def swin_video(dev):
     torch.cuda.empty_cache()
     return launches[0], row
 
+# ---------------------------------------------------------------------------
+# Phases A-F: the user entry points and the MaskFormer-v1 models
+# ---------------------------------------------------------------------------
+
+
+def predictor_visualization(dev):
+    """Phase A: the `Predictor` with its default config (PANOPTIC_CONFIG,
+    133 classes) at full width from seed 0, deformable projections perturbed
+    as phase 5's, answers 3 requests at 800x800, each with its visualization
+    (H, 3W, 3) uint8; the drawing (host time) timed apart. Then `python -m
+    bm2f_tpu_torch.predict` (its `main`, on the card by default) writes one
+    request's visualization. Every count is set to 0 just before each part
+    and read just after: K1 6 launches a request. Returns K1's launches."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+    from bm2f_tpu_torch.predict import Predictor
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+
+    pred = Predictor()
+    pred.setup(device=dev, seed=0)
+    if pred.cfg.model.num_classes != 133:
+        raise AssertionError(f"the Predictor's default config has "
+                             f"{pred.cfg.model.num_classes} classes, not "
+                             f"{PANOPTIC_CONFIG}'s 133")
+    perturb_deformable(pred.model)
+    rng = np.random.RandomState(7)
+    images = [rng.randint(0, 256, (*REQUESTS[0], 3)).astype(np.uint8) for _ in range(3)]
+    pred.predict(images[0])  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    draws = []
+    latencies = serve(pred, images, "panoptic_visualization", draws)
+    launches = ms_deform_attn_cuda.launches
+    if (launches, ms_deform_attn_cuda.launches_bf16) != (6 * len(images), 0):
+        raise AssertionError(f"predictor: K1 launched {launches} times, expected "
+                             f"{6 * len(images)}")
+    log("predictor", config=PANOPTIC_CONFIG, requests=len(images), k1_launches=launches,
+        latency_ms="/".join(f"{ms:.2f}" for ms in latencies),
+        draw_ms="/".join(f"{ms:.2f}" for ms in draws),
+        network_and_copies_ms="/".join(f"{a - b:.2f}" for a, b in zip(latencies, draws)),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    del pred
+    torch.cuda.empty_cache()
+
+    # the entry point, on the card by default: `python -m bm2f_tpu_torch.predict`
+    from PIL import Image
+
+    from bm2f_tpu_torch import predict
+
+    (ROOT / "output").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "output") as tmp:
+        src, dst = Path(tmp) / "request.png", Path(tmp) / "prediction.png"
+        Image.fromarray(images[0]).save(src)
+        reset_counts()
+        t0 = time.perf_counter()
+        predict.main(["--input", str(src), "--output", str(dst)])
+        cli_s = time.perf_counter() - t0
+        with Image.open(dst) as im:
+            size = im.size
+    H, W = images[0].shape[:2]
+    if size != (3 * W, H) or ms_deform_attn_cuda.launches != 6:
+        raise AssertionError(f"predict CLI: wrote {size}, K1 launched "
+                             f"{ms_deform_attn_cuda.launches} times")
+    log("predict_cli", config=PANOPTIC_CONFIG, png="x".join(map(str, size)),
+        k1_launches=ms_deform_attn_cuda.launches, seconds=f"{cli_s:.2f}")
+    return launches + ms_deform_attn_cuda.launches
+
+
+def demo_path(data_root: str):
+    """Phase B: `python -m bm2f_tpu_torch.demo` (its `main`, on the card by
+    default) on PANOPTIC_CONFIG over phase 19's images at their native
+    sizes: each task at depth 2, writing one PNG an image; then the panoptic
+    task at depth 1 and at depth 2 again, the pipeline's wall time against
+    the sum of its stages (overlap shows as a depth-2 wall time under depth
+    1's). Every count set to 0 just before each run and read just after: K1
+    6 launches an image. Returns K1's launches over the five runs."""
+    from PIL import Image
+
+    from bm2f_tpu_torch import demo
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+
+    images = sorted(str(p) for p in (Path(data_root) / "coco" / "val2017").glob("*.jpg"))
+    sizes = {}
+    for path in images:
+        with Image.open(path) as im:
+            sizes[path] = im.size
+    out_root = Path(data_root) / "demo_out"
+    total, walls = 0, {}
+    for i, (task, depth) in enumerate((("instance", 2), ("semantic", 2), ("panoptic", 2),
+                                       ("panoptic", 1), ("panoptic", 2))):
+        out_dir = out_root / f"{i}_{task}_d{depth}"
+        reset_counts()
+        res = demo.main(["--config", PANOPTIC_CONFIG, "--input", *images, "--output",
+                         str(out_dir), "--task", task, "--depth", str(depth)])
+        torch.cuda.synchronize()
+        launches = ms_deform_attn_cuda.launches
+        want = [str(out_dir / (Path(p).name + ".viz.png")) for p in images]
+        if res["written"] != want or launches != 6 * len(images):
+            raise AssertionError(f"demo {task}: wrote {len(res['written'])} of "
+                                 f"{len(images)}, K1 launched {launches} times")
+        for path, png in zip(images, want):
+            with Image.open(png) as im:
+                if im.size != sizes[path]:
+                    raise AssertionError(f"{png}: {im.size}, image {sizes[path]}")
+        total += launches
+        stage_sum = sum(res["stage_s"].values())
+        walls.setdefault(depth, []).append(res["wall_s"])
+        log("demo", task=task, depth=depth, images=len(images), k1_launches=launches,
+            wall_s=f"{res['wall_s']:.3f}", stage_sum_s=f"{stage_sum:.3f}",
+            **{f"{k}_s": f"{v:.3f}" for k, v in res["stage_s"].items()},
+            pngs=len(res["written"]))
+    log("demo_overlap", task="panoptic", images=len(images),
+        depth1_wall_s=f"{walls[1][0]:.3f}",
+        depth2_wall_s="/".join(f"{w:.3f}" for w in walls[2][2:]),
+        depth2_over_depth1=f"{min(walls[2][2:]) / walls[1][0]:.3f}")
+    return total
+
+
+def demo_video_path(video_root: str):
+    """Phase C: `python -m bm2f_tpu_torch.demo_video` (its `main`) on
+    VIDEO_CONFIG over phase 27's DEMO_VIDEO_FRAMES-frame clip at its native
+    1280x720 (padded to 736x1280, one forward of the whole clip): one PNG a
+    frame, the time, the peak memory, K1 6 launches (every count set to 0
+    just before and read just after). Returns K1's launches."""
+    from PIL import Image
+
+    from bm2f_tpu_torch import demo_video
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+
+    dd = next(d for d in DatasetCatalog.get("ytvis_2019_val")
+              if d["length"] == DEMO_VIDEO_FRAMES)
+    frames = str(Path(dd["file_names"][0]).parent)
+    out_dir = Path(video_root) / "demo_video_out"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = demo_video.main(["--config", VIDEO_CONFIG, "--input", frames, "--output",
+                           str(out_dir)])
+    torch.cuda.synchronize()
+    launches = ms_deform_attn_cuda.launches
+    if (res["frames"], len(res["written"]), launches) != (DEMO_VIDEO_FRAMES,) * 2 + (6,):
+        raise AssertionError(f"demo_video: {res['frames']} frames, "
+                             f"{len(res['written'])} written, K1 {launches} launches")
+    with Image.open(res["written"][-1]) as im:
+        if im.size != (dd["width"], dd["height"]):
+            raise AssertionError(f"demo_video frame {im.size}")
+    log("demo_video", config=VIDEO_CONFIG, frames=res["frames"],
+        native=f"{dd['height']}x{dd['width']}", padded="x".join(map(str, res["padded_hw"])),
+        pngs=len(res["written"]), tracks_kept=res["tracks_kept"],
+        seconds=f"{res['seconds']:.3f}", k1_launches=launches,
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return launches
+
+
+def tta_path(dev):
+    """Phase D: `run_eval(..., tta=True)` of TTA_CONFIG (150 classes, 100
+    queries) at full width from seed 0, deformable projections perturbed,
+    over the first TTA_IMAGES images of phase 19's ade20k_sem_seg_val, each
+    at its original size: TTA_FORWARDS forwards an image (scales 0.5-1.75,
+    each flipped), K1 72 launches an image (counts set to 0 just before and
+    read just after); images/s and peak memory. Then one image's averaged
+    probabilities through K1 against the plain path, within the forward's
+    f32 error: FWD_EPS = 1.5e-3 + 1e-3 max|output| (tests/test_torch_tta.py;
+    a probability moves by at most its logits' error, an average and a
+    bilinear resize by no more). Returns K1's launches."""
+    from bm2f_tpu_torch import eval as port_eval
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.data.mappers import read_image
+    from bm2f_tpu_torch.models.maskformer import normalize_images
+    from bm2f_tpu_torch.models.tta import semantic_tta
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+    from bm2f_tpu_torch.predict import Predictor
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.utils.precision import f32_scope
+
+    pred = Predictor()
+    pred.setup(TTA_CONFIG, device=dev, seed=0)
+    perturb_deformable(pred.model)
+    cfg, model = pred.cfg, pred.model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    timings = []
+    t0 = time.perf_counter()
+    res = port_eval.run_eval(cfg, model, "ade20k_sem_seg_val", max_images=TTA_IMAGES,
+                             tta=True, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = ms_deform_attn_cuda.launches
+    if len(timings) != TTA_IMAGES or launches != 6 * TTA_FORWARDS * TTA_IMAGES:
+        raise AssertionError(f"tta: {len(timings)} images, K1 {launches} launches, "
+                             f"expected {6 * TTA_FORWARDS * TTA_IMAGES}")
+    if not 0.0 <= float(res["mIoU"]) <= 100.0:
+        raise AssertionError(f"tta: mIoU {res['mIoU']}")
+    log("tta", config=TTA_CONFIG, images=len(timings), mIoU=f"{float(res['mIoU']):.4f}",
+        sizes=" ".join("x".join(map(str, t["hw"])) for t in timings),
+        image_ms="/".join(f"{t['ms']:.2f}" for t in timings),
+        images_per_s=f"{len(timings) / sum(t['ms'] / 1e3 for t in timings):.3f}",
+        warm_images_per_s=f"{(len(timings) - 1) / sum(t['ms'] / 1e3 for t in timings[1:]):.3f}",
+        k1_launches=launches, k1_per_image=launches // len(timings),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        wall_s=f"{wall:.2f}")
+
+    img = read_image(DatasetCatalog.get("ade20k_sem_seg_val")[TTA_IMAGES - 1]["file_name"])
+    x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(dev)
+    scale = []
+
+    def predictor(impl):
+        def predict(v):
+            out = model(normalize_images(v, cfg.model), deform_impl=impl)
+            scale.append(max(out["pred_logits"].abs().max().item(),
+                             out["pred_masks"].abs().max().item()))
+            return out["pred_logits"], out["pred_masks"]
+        return predict
+
+    with torch.no_grad(), f32_scope(cfg.model.dtype):
+        a = semantic_tta(predictor("auto"), x)
+        b = semantic_tta(predictor("plain"), x)
+    err = (a - b).abs().max().item()
+    eps = 1.5e-3 + 1e-3 * max(scale)
+    log("tta_parity", size="x".join(map(str, img.shape[:2])), forwards=len(scale),
+        max_abs_diff=f"{err:.3e}", bound=f"{eps:.3e}",
+        argmax_moved=int((a.argmax(-1) != b.argmax(-1)).sum().item()))
+    if not err <= eps:
+        raise AssertionError(f"tta: the kernel path's probabilities {err} from the plain "
+                             f"path's, beyond {eps}")
+    del pred, model, a, b
+    torch.cuda.empty_cache()
+    return launches
+
+
+def oom_retry_path(dev):
+    """Phase E: `retry_if_oom` forced on the card. An eval batch of
+    OOM_BATCH images at the OOM_BUCKET bucket (the loader's, from phase 19's
+    coco_2017_val) runs uncapped, then its half; the process is capped
+    (`torch.cuda.set_per_process_memory_fraction`) at the memory it keeps
+    plus a share of the half's peak, lowered in steps (OOM_HALF_SHARES) until
+    the batch runs out of memory while its halves fit. The capped forward
+    splits (`retry_if_oom.splits` > 0) and equals the uncapped one
+    within the forward's f32 tolerance (rtol 1e-3 / atol 1.5e-3, phase 6);
+    `run_eval` at OOM_BATCH images a batch gives the same AP under that cap
+    (its forwards and its restored masks halved as they need) as without.
+    Under a cap that one image cannot fit, the forward raises at batch 1.
+    The cap is lifted after. Returns K1's launches in the capped forward."""
+    from bm2f_tpu_torch import eval as port_eval
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+    from bm2f_tpu_torch.predict import Predictor
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.utils.memory import retry_if_oom
+
+    pred = Predictor()
+    pred.setup(CONFIG, device=dev, seed=0)
+    perturb_deformable(pred.model)
+    cfg, model = pred.cfg, pred.model
+    loader = port_eval._build_loader(cfg, "coco_2017_val", cfg.input.min_size_test,
+                                     cfg.input.max_size_test, (OOM_BUCKET,),
+                                     batch_size=OOM_BATCH)
+    images = next(iter(loader))["images"]
+
+    uncapped = port_eval.run_eval(cfg, model, "coco_2017_val", ims_per_batch=OOM_BATCH)
+
+    def forward_peak(n):
+        """The forward's peak above what was allocated before it, and its
+        outputs on the host (kept on the card they could pin a cached
+        segment that the cap would then count)."""
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = port_eval._forward(cfg, model, images[:n])
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before, (out["pred_logits"].cpu(),
+                                                           out["pred_masks"].cpu())
+
+    full_peak, want = forward_peak(OOM_BATCH)
+    half_peak, _ = forward_peak(OOM_BATCH // 2)
+    torch.cuda.empty_cache()
+    base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log("oom_retry_setup", batch=OOM_BATCH, bucket=OOM_BUCKET,
+        full_peak_gib=f"{full_peak / 2**30:.3f}", half_peak_gib=f"{half_peak / 2**30:.3f}",
+        allocated_gib=f"{base / 2**30:.3f}", reserved_gib=f"{reserved / 2**30:.3f}")
+    # The cap counts what the allocator reserves: what it keeps now (the
+    # weights, and the pool of kept tables) plus a share of the half's peak.
+    # cuDNN takes a smaller workspace when memory is short, so the full
+    # batch's measured peak is not what it needs: the share goes down until
+    # the batch no longer fits (its halves, by construction, still do).
+    splits = 0
+    try:
+        for share in OOM_HALF_SHARES:
+            cap = reserved + int(half_peak * share)
+            torch.cuda.set_per_process_memory_fraction(cap / total)
+            retry_if_oom.splits = 0
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            got = tuple(t.cpu() for t in port_eval.predictor_fn(cfg, model)(images))
+            splits, launches = retry_if_oom.splits, ms_deform_attn_cuda.launches
+            capped_peak = torch.cuda.max_memory_allocated() - base
+            log("oom_retry_cap", share=share, cap_gib=f"{cap / 2**30:.3f}", splits=splits,
+                k1_launches=launches, capped_peak_gib=f"{capped_peak / 2**30:.3f}")
+            torch.cuda.empty_cache()
+            if splits:
+                break
+        if not splits:
+            raise AssertionError("retry_if_oom made no split down to a cap of "
+                                 f"{cap / 2**30:.2f} GiB")
+        eval_cap = cap + int(half_peak * OOM_EVAL_EXTRA_SHARE)
+        torch.cuda.set_per_process_memory_fraction(eval_cap / total)
+        retry_if_oom.splits = 0
+        capped = port_eval.run_eval(cfg, model, "coco_2017_val", ims_per_batch=OOM_BATCH)
+        eval_splits = retry_if_oom.splits
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(
+            (torch.cuda.memory_reserved() + 2**26) / total)
+        try:
+            port_eval.predictor_fn(cfg, model)(images[:1])
+        except torch.OutOfMemoryError as e:
+            batch1 = str(e).split(":")[0]
+        else:
+            raise AssertionError("an image that cannot fit did not raise")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    if "batch 1" not in batch1:
+        raise AssertionError(f"the batch-1 error does not say so: {batch1}")
+    # splits + 1 forwards ran whole; each of the splits failed attempts may
+    # have launched K1 before it ran out
+    if not 6 * (splits + 1) <= launches <= 6 * (2 * splits + 1):
+        raise AssertionError(f"K1 launched {launches} times over {splits + 1} forwards "
+                             f"and {splits} failed ones")
+    for key, g, w in zip(("pred_logits", "pred_masks"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1.5e-3)
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    log("oom_retry", batch=OOM_BATCH, bucket=OOM_BUCKET, cap_gib=f"{cap / 2**30:.3f}",
+        capped_peak_gib=f"{capped_peak / 2**30:.3f}", splits=splits, k1_launches=launches,
+        logits_max_abs_diff=f"{errs[0]:.3e}", masks_max_abs_diff=f"{errs[1]:.3e}",
+        eval_cap_gib=f"{eval_cap / 2**30:.3f}", eval_splits=eval_splits, batch1=repr(batch1),
+        AP_uncapped=f"{float(uncapped['AP']):.4f}", AP_capped=f"{float(capped['AP']):.4f}")
+    if not eval_splits > 0 or capped.keys() != uncapped.keys() or any(
+            abs(float(capped[k]) - float(uncapped[k])) > 1e-6 for k in capped):
+        raise AssertionError(f"capped eval {capped} ({eval_splits} splits) against "
+                             f"uncapped {uncapped}")
+    del pred, model, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def v1_path(dev):
+    """Phase F: the MaskFormer-v1 models of V1_RUNS at full width from seed
+    0: 3 f32 requests at 800x800 and one bf16 request; the f32 forward
+    against an f64 copy of the same model on the card (norm-relative within
+    V1_F64_REL); 3 `Trainer` steps at B=2, 1024x1024, 8 targets (one warm-up
+    first) with the split by stage and the peak memory. Neither model has
+    deformable attention: K1 and K2 launch no time (counts set to 0 just
+    before each part and read just after)."""
+    import copy
+
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.models.maskformer import normalize_images
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+    from bm2f_tpu_torch.predict import Predictor
+    from bm2f_tpu_torch.train.trainer import StageTimer, Trainer, synthetic_batch
+    from bm2f_tpu_torch.utils.precision import f32_scope
+
+    rng = np.random.RandomState(8)
+    images = [rng.randint(0, 256, (*REQUESTS[0], 3)).astype(np.uint8) for _ in range(3)]
+
+    def no_deform_launch(what):
+        n = (ms_deform_attn_cuda.launches + ms_deform_attn_cuda.launches_bf16
+             + ms_deform_attn_bwd_cuda.launches + ms_deform_attn_bwd_cuda.launches_bf16)
+        if n:
+            raise AssertionError(f"v1 {what}: deformable kernels launched {n} times")
+
+    for run, over in V1_RUNS.items():
+        pred = Predictor()
+        pred.setup(CONFIG, device=dev, seed=0, overrides=over)
+        params = sum(p.numel() for p in pred.model.parameters())
+        pred.predict(images[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        f32_ms = serve(pred, images, f"v1_{run}_f32")
+        no_deform_launch("f32 serving")
+        serve_peak = torch.cuda.max_memory_allocated() / 2**30
+
+        ref = copy.deepcopy(pred.model).double()
+        for part in (ref.backbone, ref.sem_seg_head.pixel_decoder, ref.sem_seg_head.predictor):
+            part.dtype = torch.float64
+        x = torch.from_numpy(images[0].astype(np.float32))[None].to(dev)
+        with torch.no_grad(), f32_scope("float32"):
+            xn = normalize_images(x, pred.cfg.model)
+            a = pred.model(xn)
+            b = ref.sem_seg_head(ref.backbone(xn.double().permute(0, 3, 1, 2).contiguous()))
+        errs = {k: rel_err(a[k], b[k]) for k in ("pred_logits", "pred_masks")}
+        del ref, a, b, pred
+        torch.cuda.empty_cache()
+
+        pred16 = Predictor()
+        pred16.setup(CONFIG, device=dev, seed=0, overrides={**over, **BF16})
+        pred16.predict(images[0])  # warm-up
+        reset_counts()
+        bf16_ms = serve(pred16, images[:1], f"v1_{run}_bf16")
+        no_deform_launch("bf16 serving")
+        del pred16
+        torch.cuda.empty_cache()
+        log("v1_serve", run=run, params=params, f32_ms="/".join(f"{m:.2f}" for m in f32_ms),
+            bf16_ms=f"{bf16_ms[0]:.2f}", peak_mem_gib=f"{serve_peak:.2f}",
+            **{f"{k}_f64_rel": f"{e:.3e}" for k, e in errs.items()})
+        bad = {k: e for k, e in errs.items() if not e <= V1_F64_REL}
+        if bad:
+            raise AssertionError(f"v1 {run}: f32 against f64 beyond {V1_F64_REL}: {bad}")
+
+        trainer = Trainer(get_config(CONFIG, over), device=dev, seed=0)
+        batch = synthetic_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_INSTANCES, seed=0, device=dev)
+        trainer.step(batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timer = StageTimer(dev)
+        reset_counts()
+        step_ms = []
+        for i in range(TRAIN_STEPS):
+            timer.start()
+            t = time.perf_counter()
+            metrics = {k: v.item() for k, v in trainer.step(batch, mark=timer).items()}
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"v1 {run} step {i}: non-finite {bad}")
+        no_deform_launch("training")
+        log("v1_train", run=run, batch=TRAIN_BATCH, size=TRAIN_SIZE,
+            instances=TRAIN_INSTANCES, total_loss=f"{metrics['total_loss']:.4f}",
+            grad_norm=f"{metrics['grad_norm']:.4f}",
+            step_ms="/".join(f"{m:.2f}" for m in step_ms),
+            step_ms_mean=f"{sum(step_ms) / len(step_ms):.2f}",
+            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            **{f"stage_{k}": f"{v / TRAIN_STEPS:.2f}ms" for k, v in timer.ms.items()})
+        del trainer, batch
+        torch.cuda.empty_cache()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2508,6 +3032,16 @@ def main() -> int:
 
         # -- 26. the train entry point on the dataset, with an eval -----------------------
         entry_point_run(data_root)
+
+        # -- B. the demo on phase 19's images ----------------------------------------------
+        k1_demo = demo_path(data_root)
+        torch.cuda.empty_cache()
+
+        # -- D. the semantic eval with test-time augmentation -------------------------------
+        k1_tta = tta_path(dev)
+
+        # -- E. retry_if_oom forced on the card ---------------------------------------------
+        k1_oom = oom_retry_path(dev)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -2563,8 +3097,19 @@ def main() -> int:
 
         # -- 37. the video eval on Swin-L ---------------------------------------------------
         k1_swin_video, k1_swin_video_row = swin_video(dev)
+        torch.cuda.empty_cache()
+
+        # -- C. the video demo on phase 27's 19-frame clip ----------------------------------
+        k1_demo_video = demo_video_path(video_root)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(video_root, ignore_errors=True)
+
+    # -- A. the predictor's default config, with the visualization ---------------------
+    k1_predictor = predictor_visualization(dev)
+
+    # -- F. the MaskFormer-v1 models -------------------------------------------------------
+    v1_path(dev)
 
     # -- 38. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
@@ -2578,7 +3123,8 @@ def main() -> int:
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
         "launches": (launches + k1_train + k1_pd_f32 + k1_eval + k1_weak + k1_mask_wo_lsj
                      + k1_video_eval + k_video["mask"][0] + k_video["weak"][0]
-                     + k1_swin_serve + k1_swin_train + k1_swin_video),
+                     + k1_swin_serve + k1_swin_train + k1_swin_video + k1_predictor
+                     + k1_demo + k1_demo_video + k1_tta + k1_oom),
         "launches_by_path": {"serve": launches, "train": k1_train, "train_weak": k1_weak,
                              "train_wo_lsj": k1_mask_wo_lsj,
                              "serve_bf16_pixel_decoder_f32": k1_pd_f32,
@@ -2586,7 +3132,10 @@ def main() -> int:
                              "eval_video": k1_video_eval, "train_video": k_video["mask"][0],
                              "train_video_weak": k_video["weak"][0],
                              "serve_swin_l": k1_swin_serve, "train_swin_l": k1_swin_train,
-                             "eval_video_swin_l": k1_swin_video},
+                             "eval_video_swin_l": k1_swin_video,
+                             "predictor_panoptic_and_cli": k1_predictor, "demo": k1_demo,
+                             "demo_video": k1_demo_video, "eval_tta": k1_tta,
+                             "eval_oom_retry": k1_oom, "v1_fpn_and_transformer_fpn": 0},
         "eval_buckets": {str(b): row for (b, dt), row in k1_buckets.items() if dt == "f32"},
         "video_buckets": {f"Tp{tp}_S{row['S']}": row for tp, row in k1_video_rows.items()},
         "swin_l": {"serve_800x800": k1_swin_serve_row, "video": k1_swin_video_row},

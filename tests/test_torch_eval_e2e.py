@@ -347,7 +347,8 @@ def test_run_eval_matches_jax(e2e, etype, monkeypatch):
 
 def test_entry_point_on_the_cpu(e2e, tmp_path, monkeypatch, capsys):
     """`python -m bm2f_tpu_torch.eval` with a registered synthetic dataset;
-    `--tta` raises and names its ROADMAP item."""
+    `--tta` on a panoptic dataset is ignored, with a warning, as the root
+    `run_eval` ignores it there."""
     names, _, _ = e2e
     root = tmp_path / "data"
     write_synthetic_coco(str(root), SIZES[:1], seed=5)
@@ -362,5 +363,6 @@ def test_entry_point_on_the_cpu(e2e, tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(DatasetCatalog, "allow_overwrite", True)
     res = port_eval.main(argv)
     assert {"PQ", "SQ", "RQ"} <= set(res)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        port_eval.main(argv + ["--tta"])
+    capsys.readouterr()
+    assert port_eval.main(argv + ["--tta"]) == res
+    assert "applies to sem_seg datasets only" in capsys.readouterr().out

@@ -27,6 +27,13 @@ VIDEO_MODULES = ("bm2f_tpu_torch.video.video_decoder", "bm2f_tpu_torch.video.vid
                  "bm2f_tpu_torch.losses.weaksup_video")
 
 
+# the entry points and MaskFormer-v1 modules, which the walk must reach
+ENTRY_AND_V1_MODULES = ("bm2f_tpu_torch.demo", "bm2f_tpu_torch.demo_video",
+                        "bm2f_tpu_torch.models.tta", "bm2f_tpu_torch.models.transformer",
+                        "bm2f_tpu_torch.models.maskformer_v1", "bm2f_tpu_torch.utils.memory",
+                        "bm2f_tpu_torch.utils.async_predictor")
+
+
 def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -36,3 +43,4 @@ def test_port_imports_no_jax():
     assert n >= 15, res.stdout
     modules = res.stdout.split("MODULES")[1].split()
     assert set(VIDEO_MODULES) <= set(modules), res.stdout
+    assert set(ENTRY_AND_V1_MODULES) <= set(modules), res.stdout

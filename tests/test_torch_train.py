@@ -39,9 +39,9 @@ def jax_small():
     return cfg, model, variables
 
 
-def _port_keys(params_tree) -> dict:
+def _port_keys(params_tree, pixel_decoder: str = "msdeform") -> dict:
     """A JAX params-shaped tree under the port's state_dict keys."""
-    return jax_tree_to_numpy({"params": params_tree})
+    return jax_tree_to_numpy({"params": params_tree}, pixel_decoder=pixel_decoder)
 
 
 def _port_model(variables):
@@ -63,8 +63,9 @@ def check_param_groups(variables, model, cfg) -> dict:
             lambda p, x: np.full(np.shape(x), fn(jax_optim._path_str(p)), np.float64),
             variables["params"])
 
-    lr_ref = _port_keys(tagged(lambda s: 0.1 if jax_optim._is_backbone(s) else 1.0))
-    wd_ref = _port_keys(tagged(lambda s: 0.0 if jax_optim._no_decay(s) else 1.0))
+    pd = cfg.model.pixel_decoder.name
+    lr_ref = _port_keys(tagged(lambda s: 0.1 if jax_optim._is_backbone(s) else 1.0), pd)
+    wd_ref = _port_keys(tagged(lambda s: 0.0 if jax_optim._no_decay(s) else 1.0), pd)
     groups = param_groups(model, cfg.train.optimizer)
     assert {g.name for g in groups} == set(lr_ref) == set(dict(model.named_parameters()))
     for g in groups:

@@ -58,16 +58,18 @@ def to_numpy_tree(tree):
 
 
 def submodule_state_dict(variables, jax_prefix: str, port_prefix: str,
-                         n_levels: int = 3) -> Dict[str, torch.Tensor]:
+                         n_levels: int = 3,
+                         pixel_decoder: str = "msdeform") -> Dict[str, torch.Tensor]:
     """JAX variables of a sub-module, placed at `jax_prefix` of the full
-    model's tree, as the state_dict of the port's module at `port_prefix`."""
+    model's tree, as the state_dict of the port's module at `port_prefix`
+    (`pixel_decoder` the model's `model.pixel_decoder.name`)."""
     def nest(tree):
         for part in reversed(jax_prefix.split("/")):
             tree = {part: tree}
         return tree
 
     wrapped = {coll: nest(to_numpy_tree(sub)) for coll, sub in variables.items()}
-    flat = jax_tree_to_numpy(wrapped, n_levels)
+    flat = jax_tree_to_numpy(wrapped, n_levels, pixel_decoder)
     return {k[len(port_prefix) + 1:]: torch.tensor(np.asarray(v))
             for k, v in flat.items()}
 
