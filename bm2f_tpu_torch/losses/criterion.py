@@ -11,6 +11,17 @@ losses with deep supervision (reference: mask2former/modeling/criterion.py:
   set `jax.lax.top_k` selects (lower index first among equal values);
 - `num_masks` is the sum of valid targets over the batch.
 
+The batch is the GLOBAL batch, as in the JAX package's one SPMD step: under
+data parallelism each rank holds its rows of it, and every batch-wide
+denominator (`num_masks`, the class CE's weight sum of each layer) is the
+sum over all ranks, taken in one all-reduce of a small vector a step
+(`label_denominators`). Each rank's losses are its own numerators over
+those denominators, so the ranks' losses and gradients sum to the global
+ones (the trainer sums the gradients; it does not average them). Upstream
+Mask2Former all-reduces `num_masks` alone and averages the rest, which is
+another loss whenever the ranks hold different numbers of targets or
+matches.
+
 Every random point comes in through `points` (see `draw_points`), so that a
 run is reproducible from a `torch.Generator` and the tests can hand the
 criterion the JAX package's own draws. The assignment comes from
@@ -30,6 +41,7 @@ import torch.nn.functional as F
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import hungarian_matcher_costs
 from bm2f_tpu_torch.ops.sampling import point_sample
+from bm2f_tpu_torch.parallel import global_sum, local_rows, world_size
 
 
 @dataclass(frozen=True)
@@ -59,32 +71,62 @@ def draw_points(cfg: SetCriterionConfig, n_layers: int, batch: int,
     (L, B * frames, n_candidates, 2) and "rand" (L, B * frames, num_points -
     n_importance, 2) for the mask losses. A clip's matcher points are shared
     by its frames; its loss points are drawn per frame (`frames` = T, as the
-    video criterion takes them)."""
+    video criterion takes them).
+
+    `batch` is this rank's: the points of the whole global batch (`batch` x
+    `world_size()` images) are drawn, as the JAX step draws them from one
+    key, and this rank keeps its rows (`local_rows`). So the ranks'
+    generators stay in step, and one rank's state is every rank's."""
     dev = generator.device
     n_rand = cfg.num_points - cfg.n_importance
+    glob = batch * world_size()
     return {
-        name: torch.rand((n_layers, b, n, 2), generator=generator, device=dev)
-        for name, b, n in (("match", batch, cfg.num_points),
-                           ("cand", batch * frames, cfg.n_candidates),
-                           ("rand", batch * frames, n_rand))
+        name: local_rows(torch.rand((n_layers, b, n, 2), generator=generator, device=dev),
+                         axis=1)
+        for name, b, n in (("match", glob, cfg.num_points),
+                           ("cand", glob * frames, cfg.n_candidates),
+                           ("rand", glob * frames, n_rand))
     }
 
 
-def _loss_labels(pred_logits, tgt_labels, tgt_valid, assignment, cfg):
-    """Weighted CE over all queries; unmatched queries learn 'no object'
-    (reference: criterion.py:809-826). Padding targets scatter into an
+def class_targets(tgt_labels, tgt_valid, assignment, num_queries: int, cfg):
+    """The (B, Q) class target of every query (`num_classes`, "no object",
+    for a query no valid target is assigned to) and its CE weight
+    (`eos_coef` for "no object", else 1). Padding targets scatter into an
     extra column Q, which is cut."""
-    B, Q, _ = pred_logits.shape
-    K = cfg.num_classes
-    target_classes = torch.full((B, Q + 1), K, dtype=torch.long,
-                                device=pred_logits.device)
+    B, Q, K = assignment.shape[0], num_queries, cfg.num_classes
+    target_classes = torch.full((B, Q + 1), K, dtype=torch.long, device=assignment.device)
     scatter_q = torch.where(tgt_valid, assignment, torch.full_like(assignment, Q))
     target_classes.scatter_(1, scatter_q, tgt_labels.long())
     target_classes = target_classes[:, :Q]
+    return target_classes, torch.where(target_classes == K, cfg.eos_coef, 1.0)
+
+
+def _loss_labels(pred_logits, target_classes, w, w_sum):
+    """Weighted CE over all queries; unmatched queries learn 'no object'
+    (reference: criterion.py:809-826). `target_classes` and `w` as
+    `class_targets` gives them; `w_sum` is the batch's sum of `w` (at least
+    1, `label_denominators`)."""
     logp = F.log_softmax(pred_logits.float(), dim=-1)
     nll = -logp.gather(-1, target_classes[..., None])[..., 0]
-    w = torch.where(target_classes == K, cfg.eos_coef, 1.0)
-    return (w * nll).sum() / w.sum().clamp(min=1.0)
+    return (w * nll).sum() / w_sum
+
+
+def label_denominators(layers, tgt_labels, tgt_valid, assignment, cfg, *extra_sums):
+    """`class_targets` of every layer and the batch's denominators:
+    (num_masks, [(target_classes, w, w_sum) per layer], [the `extra_sums`
+    (0-d) over the batch]). `assignment` (B, L+1, G). Each denominator is
+    the local sum summed over the ranks, all in ONE all-reduce of a small
+    vector (`num_masks` first), then at least 1: the JAX package's
+    `jnp.maximum(sum, 1.0)` over the global batch."""
+    Q = layers[0][0].shape[1]
+    cls = [class_targets(tgt_labels, tgt_valid, assignment[:, i], Q, cfg)
+           for i in range(len(layers))]
+    local = [tgt_valid.float().sum(), *(w.sum() for _, w in cls), *extra_sums]
+    num_masks, *sums = (d.clamp(min=1.0).to(t.dtype)
+                        for d, t in zip(global_sum(torch.stack(local)).unbind(0), local))
+    labels = [(tc, w, s) for (tc, w), s in zip(cls, sums)]
+    return num_masks, labels, sums[len(cls):]
 
 
 def _masked_sums(logits, labels, w):
@@ -182,11 +224,11 @@ def set_criterion(
     if mark is not None:
         mark("assign")
 
-    num_masks = tgt_valid.float().sum().clamp(min=1.0)
+    num_masks, labels, _ = label_denominators(layers, tgt_labels, tgt_valid, assignment, cfg)
     losses: Dict[str, torch.Tensor] = {}
     ce_l, mask_l, dice_l = [], [], []
     for i, (logits, masks) in enumerate(layers):
-        ce_l.append(_loss_labels(logits, tgt_labels, tgt_valid, assignment[:, i], cfg))
+        ce_l.append(_loss_labels(logits, *labels[i]))
         loss_mask, loss_dice = _loss_masks(
             masks, tgt_nhwc, tgt_valid, assignment[:, i], num_masks, cfg,
             points["cand"][i], points["rand"][i])

@@ -5,7 +5,9 @@ package computes it (bm2f_tpu/losses/video_criterion.py):
 - the matcher's points are drawn once per clip and sampled in every frame,
   and its costs are taken over (point, frame): one clip-level assignment;
 - the mask losses take (instance, frame) pairs as their masks, with points
-  drawn per frame, while `num_masks` stays the count of instances.
+  drawn per frame, while `num_masks` stays the count of instances;
+- `num_masks` and the class CE's weight sums are the global batch's
+  (`criterion.label_denominators`), as in the image criterion.
 
 Every random point comes in through `points`, as `draw_points(cfg, L, B,
 generator, frames=T)` gives them, so that the tests can hand the criterion
@@ -18,7 +20,12 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, _loss_labels, point_mask_losses
+from bm2f_tpu_torch.losses.criterion import (
+    SetCriterionConfig,
+    _loss_labels,
+    label_denominators,
+    point_mask_losses,
+)
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import PAD_COST, point_costs
 from bm2f_tpu_torch.ops.sampling import point_sample
@@ -119,12 +126,12 @@ def video_set_criterion(
     if mark is not None:
         mark("assign")
 
-    num_masks = tgt_valid.float().sum().clamp(min=1.0)
+    num_masks, labels, _ = label_denominators(layers, tgt_labels, tgt_valid, assignment, cfg)
     tgt_frames = frame_major(tgt).contiguous()
     losses: Dict[str, torch.Tensor] = {}
     ce_l, mask_l, dice_l = [], [], []
     for i, (logits, masks) in enumerate(layers):
-        ce_l.append(_loss_labels(logits, tgt_labels, tgt_valid, assignment[:, i], cfg))
+        ce_l.append(_loss_labels(logits, *labels[i]))
         loss_mask, loss_dice = video_loss_masks(
             masks, tgt_frames, tgt_valid, assignment[:, i], num_masks, cfg,
             points["cand"][i], points["rand"][i])

@@ -215,10 +215,32 @@ def pairwise_loss(src_masks: torch.Tensor, color_similarity: torch.Tensor,
     over the edges inside the box whose color similarity reaches the
     threshold. src_masks (N, H, W) logits, color_similarity (N, H, W, K),
     box_masks (N, H, W), valid (N,)."""
+    weights = pairwise_weights(color_similarity, box_masks, valid, color_thresh,
+                               src_masks.dtype)
+    return weighted_pairwise_loss(src_masks, weights, weights.sum().clamp(min=1.0),
+                                  num_masks, kernel_size=kernel_size, dilation=dilation,
+                                  warmup_factor=warmup_factor)
+
+
+def pairwise_weights(color_similarity: torch.Tensor, box_masks: torch.Tensor,
+                     valid: torch.Tensor, color_thresh: float,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """(N, H, W, K) 0/1 weights of the pairwise loss's edges: inside the box
+    and of colour similarity at least `color_thresh`, on valid rows. They
+    depend on no prediction, so a criterion computes them once for every
+    layer."""
+    return ((color_similarity >= color_thresh).to(dtype)
+            * box_masks[..., None] * valid[:, None, None, None])
+
+
+def weighted_pairwise_loss(src_masks: torch.Tensor, weights: torch.Tensor,
+                           weight_sum: torch.Tensor, num_masks, *, kernel_size: int = 3,
+                           dilation: int = 2, warmup_factor: float = 1.0) -> torch.Tensor:
+    """`pairwise_loss` on `pairwise_weights`, over `weight_sum`: the batch's
+    sum of the weights, at least 1 (the global batch's under data
+    parallelism, `criterion.label_denominators`)."""
     lsp = log_same_prob(src_masks, kernel_size, dilation)
-    weights = ((color_similarity >= color_thresh).to(lsp.dtype)
-               * box_masks[..., None] * valid[:, None, None, None])
-    loss = (-lsp * weights).sum() / weights.sum().clamp(min=1.0)
+    loss = (-lsp * weights).sum() / weight_sum
     return loss / num_masks * warmup_factor
 
 

@@ -15,6 +15,10 @@ computes them on all B x G rows and multiplies the invalid ones by 0, so
 the numbers are the same up to summation order, and autograd keeps no
 (B x G, h, w, K) tensors of padding: at the 864x1408 canvas with G = 100
 those would be ~0.5 GB each, about eight a layer.
+
+`num_masks`, the class CE's weight sums and the pairwise loss's weight sum
+are the global batch's, in one all-reduce a step under data parallelism
+(`criterion.label_denominators`).
 """
 
 from __future__ import annotations
@@ -23,13 +27,18 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, _loss_labels
+from bm2f_tpu_torch.losses.criterion import (
+    SetCriterionConfig,
+    _loss_labels,
+    label_denominators,
+)
 from bm2f_tpu_torch.losses.weaksup import (
     pairwise_cost_matrix,
-    pairwise_loss,
+    pairwise_weights,
     projection_cost_matrix,
     projection_loss,
     update_box_masks,
+    weighted_pairwise_loss,
 )
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import PAD_COST
@@ -118,7 +127,6 @@ def weaksup_set_criterion(
     if mark is not None:
         mark("assign")
 
-    num_masks = valid.float().sum().clamp(min=1.0)
     box_masks = targets["box_masks"]
     if mask_update_pix_thr is not None:
         box_masks = update_box_masks(outputs["pred_masks"].detach().float(),
@@ -128,23 +136,29 @@ def weaksup_set_criterion(
     box_v = box_masks[b_idx, g_idx]  # (N, h, w)
     bounds_v = {k: targets[k][b_idx, g_idx] for k in _BOUNDS}
     ones_v = torch.ones(b_idx.shape[0], device=valid.device)
+    pair_sums = ()
     if use_pairwise:
-        cs_v = targets["color_similarity"][b_idx]  # (N, h, w, K)
+        # the same edges in every layer: (N, h, w, K)
+        pair_w = pairwise_weights(targets["color_similarity"][b_idx], box_v, ones_v,
+                                  color_thresh, torch.float32)
+        pair_sums = (pair_w.sum(),)
+    num_masks, ce_labels, pair_sums = label_denominators(layers, labels, valid, assignment,
+                                                         cfg, *pair_sums)
 
     losses: Dict[str, torch.Tensor] = {}
     ce_l, proj_l, pair_l = [], [], []
     for i, (logits, masks) in enumerate(layers):
         asg = assignment[:, i]
-        ce_l.append(_loss_labels(logits, labels, valid, asg, cfg))
+        ce_l.append(_loss_labels(logits, *ce_labels[i]))
         src = masks[b_idx, asg[b_idx, g_idx]].float()  # (N, h, w)
         proj_l.append(projection_loss(src, box_v, bounds_v, ones_v, num_masks))
         suffix = "" if i == len(layers) - 1 else f"_{i}"
         losses[f"loss_ce{suffix}"] = ce_l[-1]
         losses[f"loss_mask_projection{suffix}"] = proj_l[-1]
         if use_pairwise:
-            pair_l.append(pairwise_loss(
-                src, cs_v, box_v, ones_v, num_masks, color_thresh=color_thresh,
-                kernel_size=kernel_size, dilation=dilation, warmup_factor=warmup_factor))
+            pair_l.append(weighted_pairwise_loss(
+                src, pair_w, pair_sums[0], num_masks, kernel_size=kernel_size,
+                dilation=dilation, warmup_factor=warmup_factor))
             losses[f"loss_pairwise{suffix}"] = pair_l[-1]
     total = cfg.class_weight * torch.stack(ce_l).sum() + projection_weight * torch.stack(
         proj_l).sum()

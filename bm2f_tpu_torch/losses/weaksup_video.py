@@ -16,7 +16,10 @@ in-box score is when the features are zero).
 
 As in `losses/weaksup_criterion.py`, the losses are computed on the valid
 targets' rows only: the same numbers as JAX's masked sums over all B x G
-rows, up to summation order.
+rows, up to summation order; and `num_masks`, the class CE's, the spatial
+pairwise loss's and the temporal loss's denominators are the global
+batch's, in one all-reduce a step under data parallelism
+(`criterion.label_denominators`).
 """
 
 from __future__ import annotations
@@ -26,13 +29,19 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, _loss_labels
+from bm2f_tpu_torch.losses.criterion import (
+    SetCriterionConfig,
+    _loss_labels,
+    label_denominators,
+)
 from bm2f_tpu_torch.losses.weaksup import (
     pairwise_cost_matrix,
-    pairwise_loss,
+    pairwise_weights,
     projection_cost_matrix,
     projection_loss,
+    weighted_pairwise_loss,
 )
+from bm2f_tpu_torch.parallel import world_size
 from bm2f_tpu_torch.losses.weaksup_criterion import _BOUNDS
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import PAD_COST
@@ -103,14 +112,18 @@ def temporal_pair_log_same(mask_curr: torch.Tensor, mask_next: torch.Tensor,
 
 
 def temporal_pairwise_loss(src_masks: torch.Tensor, pairs: torch.Tensor,
-                           pairs_valid: torch.Tensor,
-                           warmup_factor: float = 1.0) -> torch.Tensor:
+                           pairs_valid: torch.Tensor, warmup_factor: float = 1.0,
+                           valid_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The mean -log P(same) over the valid matched point pairs (reference:
     sum(sim * 1) / count, :269-334). src_masks (N, T, h, w) matched logits,
-    pairs (N, T-1, Kp, 4) in mask coordinates, pairs_valid (N, T-1, Kp)."""
+    pairs (N, T-1, Kp, 4) in mask coordinates, pairs_valid (N, T-1, Kp).
+    `valid_sum`, the count of valid pairs over the batch (at least 1), is
+    the criterion's global one; these pairs' count when None."""
     sims = temporal_pair_log_same(src_masks[:, :-1], src_masks[:, 1:], pairs)
     v = pairs_valid.to(sims.dtype)
-    return (sims * v).sum() / v.sum().clamp(min=1.0) * warmup_factor
+    if valid_sum is None:
+        valid_sum = v.sum().clamp(min=1.0)
+    return (sims * v).sum() / valid_sum * warmup_factor
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +216,6 @@ def video_weaksup_set_criterion(
     if mark is not None:
         mark("assign")
 
-    num_masks = valid.float().sum().clamp(min=1.0)
     # the valid targets' rows (b, g), one host synchronise a step; each row
     # is T frames
     b_idx, g_idx = valid.nonzero(as_tuple=True)
@@ -211,17 +223,26 @@ def video_weaksup_set_criterion(
     box_v = targets["box_masks"][b_idx, g_idx].reshape(n * T, h, w)
     bounds_v = {k: targets[k][b_idx, g_idx].flatten(0, 1) for k in _BOUNDS}
     ones_v = torch.ones(n * T, device=valid.device)
+    extra = []
     if use_spat:
-        cs_v = targets["color_similarity"][b_idx].flatten(0, 1)  # (n*T, h, w, K)
+        # the same edges in every layer: (n*T, h, w, K)
+        pair_w = pairwise_weights(targets["color_similarity"][b_idx].flatten(0, 1),
+                                  box_v, ones_v, color_thresh, torch.float32)
+        extra.append(pair_w.sum())
     if use_temp:
         pairs_v = targets["temporal_pairs"][b_idx, g_idx]  # (n, T-1, Kp, 4)
         pv_v = targets["temporal_pairs_valid"][b_idx, g_idx]
+        extra.append(pv_v.to(torch.float32).sum())
+    num_masks, ce_labels, extra = label_denominators(layers, labels, valid, assignment,
+                                                     cfg, *extra)
+    pair_sum = extra[0] if use_spat else None
+    temp_sum = extra[-1] if use_temp else None
 
     losses: Dict[str, torch.Tensor] = {}
     ce_l, proj_l, pair_l, temp_l = [], [], [], []
     for i, (logits, masks) in enumerate(layers):
         asg = assignment[:, i]
-        ce_l.append(_loss_labels(logits, labels, valid, asg, cfg))
+        ce_l.append(_loss_labels(logits, *ce_labels[i]))
         src = masks[b_idx, asg[b_idx, g_idx]].float()  # (n, T, h, w)
         src_ft = src.reshape(n * T, h, w)
         proj_l.append(projection_loss(src_ft, box_v, bounds_v, ones_v, num_masks * T))
@@ -229,12 +250,13 @@ def video_weaksup_set_criterion(
         losses[f"loss_ce{suffix}"] = ce_l[-1]
         losses[f"loss_mask_projection{suffix}"] = proj_l[-1]
         if use_spat:
-            pair_l.append(pairwise_loss(
-                src_ft, cs_v, box_v, ones_v, num_masks * T, color_thresh=color_thresh,
-                kernel_size=kernel_size, dilation=dilation, warmup_factor=warmup_factor))
+            pair_l.append(weighted_pairwise_loss(
+                src_ft, pair_w, pair_sum, num_masks * T, kernel_size=kernel_size,
+                dilation=dilation, warmup_factor=warmup_factor))
             losses[f"loss_mask_spatial_pairwise{suffix}"] = pair_l[-1]
         if use_temp:
-            temp_l.append(temporal_pairwise_loss(src, pairs_v, pv_v, warmup_factor))
+            temp_l.append(temporal_pairwise_loss(src, pairs_v, pv_v, warmup_factor,
+                                                 valid_sum=temp_sum))
             losses[f"loss_mask_temporal_pairwise{suffix}"] = temp_l[-1]
     total = (cfg.class_weight * torch.stack(ce_l).sum()
              + projection_weight * torch.stack(proj_l).sum())
@@ -243,8 +265,11 @@ def video_weaksup_set_criterion(
     if use_temp:
         total = total + temporal_pairwise_weight * torch.stack(temp_l).sum()
         # the share of DINO matches that survive (reference
-        # video_maskformer_model.py:361-369 loss_pos_temp_pair_prop)
-        losses["temp_pair_valid_prop"] = targets["temporal_pairs_valid"].float().mean()
+        # video_maskformer_model.py:361-369 loss_pos_temp_pair_prop): this
+        # rank's share of the global batch's mean, which the trainer's sum
+        # of the ranks' metrics completes (every rank holds as many pairs)
+        losses["temp_pair_valid_prop"] = (targets["temporal_pairs_valid"].float().mean()
+                                          / world_size())
     if mark is not None:
         mark("losses")
     return total, losses

@@ -9,8 +9,8 @@ Training on a registered dataset (the loop, `train.loop.run_train_loop`):
 registers the builtin splits under `--data-root` (else
 `$DETECTRON2_DATASETS`, else ./datasets) and reads `--dataset` through the
 config's mapper (`input.dataset_mapper`, seeded with `train.seed`) and
-`build_train_loader`, `train.ims_per_batch` images a step, on this one
-device (DDP is ROADMAP queue 1 item 15). As the JAX package's train.py, the
+`build_train_loader`, `train.ims_per_batch` images a step (the global
+batch; see `--distributed`). As the JAX package's train.py, the
 loop dispatches no per-step synchronise; the console, JSON
 (`<output>/metrics.json`) and TensorBoard writers run every
 `train.log_period` steps; a checkpoint goes under `<output>/checkpoints`
@@ -23,7 +23,26 @@ again from its seed, as in JAX). `--eval-only`
 evaluates the model (after `--resume`, the latest checkpoint's) on
 `--eval-dataset`, else `--dataset`, and prints its metrics. Box-supervised
 training is the config's `model.loss.sup_type` (the `*_proj` and
-`*_projpair` presets).
+`*_projpair` presets). `--profile` traces steps 10-15 with
+`torch.profiler` into `<output>/profile` (root train.py's `--profile`).
+
+Data-parallel training (root train.py `--distributed`) runs one process
+per card under PyTorch's launcher:
+
+    python -m torch.distributed.run --nproc-per-node 4 -m bm2f_tpu_torch.train \
+        --distributed --config coco_instance_r50 --dataset coco_2017_train ...
+
+Each rank starts the process group from the launcher's environment
+(`parallel.init_distributed`: NCCL on its card `cuda:LOCAL_RANK`, or gloo
+with `--device cpu`; a missing variable or a failed NCCL start raises) and
+trains `train.ims_per_batch // world` images a step through the sampler's
+`rank::world` shard (raising when the world does not divide the batch, as
+root train.py:207-209 asserts); `--synthetic` draws the global `--batch`
+and each rank takes its rows. The step is the JAX package's step on the
+global batch (`train/trainer.py`). Rank 0 writes the metrics, the
+TensorBoard events and the checkpoints; the other ranks wait for each
+save. The evaluation (`--eval-dataset`, `--eval-only`) runs on every rank,
+each on its shard of the dataset, and gathers the evaluators.
 
 Video training is a `ytvis*` preset on a YouTube-VIS split (`data/ytvis.py`
 registers them under the same root): clips of `input.sampling_frame_num`
@@ -64,6 +83,7 @@ import time
 import torch
 
 from bm2f_tpu_torch.config import get_config, parse_override, update
+from bm2f_tpu_torch.parallel import init_distributed, local_rows, rank, world_size
 from bm2f_tpu_torch.train.checkpoint import Checkpointer
 from bm2f_tpu_torch.train.loop import dispatch_eval, run_train_loop, synthetic_loader
 from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
@@ -77,8 +97,8 @@ from bm2f_tpu_torch.utils.events import (
 
 
 def quick_run(trainer: Trainer, args) -> None:
-    batch = synthetic_batch(args.batch, args.size, args.instances, args.seed,
-                            trainer.cfg.model.num_classes, device=args.device)
+    batch = local_rows(synthetic_batch(args.batch, args.size, args.instances, args.seed,
+                                       trainer.cfg.model.num_classes, device=trainer.device))
     sync = torch.cuda.synchronize if trainer.device.type == "cuda" else (lambda: None)
     for i in range(args.steps):
         sync()
@@ -86,6 +106,8 @@ def quick_run(trainer: Trainer, args) -> None:
         metrics = trainer.step(batch)
         m = {k: float(v) for k, v in metrics.items()}  # waits for the step
         ms = (time.perf_counter() - t0) * 1e3
+        if rank() != 0:
+            continue
         final = " ".join(f"{k} {v:.4f}" for k, v in m.items()
                          if k.startswith("loss_") and not k.rsplit("_", 1)[-1].isdigit())
         print(f"step {i} total_loss {m['total_loss']:.4f} {final} "
@@ -109,8 +131,8 @@ def train_loader(cfg, args, start: int):
             "ytvis_with_feats mapper is given no features root, as in the JAX "
             "train.py, so the temporal pairs come from ties")
     mapper = MAPPERS[name](cfg.input, seed=cfg.train.seed)
-    return build_train_loader(args.dataset, mapper, cfg.train.ims_per_batch,
-                              seed=cfg.train.seed)
+    return build_train_loader(args.dataset, mapper, cfg.train.ims_per_batch // world_size(),
+                              seed=cfg.train.seed, rank=rank(), world_size=world_size())
 
 
 def train(trainer: Trainer, args) -> int:
@@ -120,13 +142,14 @@ def train(trainer: Trainer, args) -> int:
     cfg = trainer.cfg
     ckpt = Checkpointer(os.path.join(args.output, "checkpoints"))
     start = ckpt.resume_or_load(trainer, resume=args.resume)
+    say = print if rank() == 0 else (lambda *a, **k: None)
     if start is not None:
-        print(f"resumed from step {start} in {ckpt.directory}", flush=True)
+        say(f"resumed from step {start} in {ckpt.directory}", flush=True)
     if args.eval_only:
         res = dispatch_eval(cfg, trainer.model, args.eval_dataset or args.dataset)
-        print("eval " + json.dumps({"iteration": trainer.step_count,
-                                    **{f"eval/{k}": float(v) for k, v in res.items()}}),
-              flush=True)
+        say("eval " + json.dumps({"iteration": trainer.step_count,
+                                  **{f"eval/{k}": float(v) for k, v in res.items()}}),
+            flush=True)
         return trainer.step_count
     loader = train_loader(cfg, args, trainer.step_count)
     writers = [
@@ -137,8 +160,10 @@ def train(trainer: Trainer, args) -> int:
     if args.wandb:
         writers.append(WandBWriter())
     it = run_train_loop(cfg, trainer, loader, next(loader), ckpt, EventStorage(), writers,
-                        eval_dataset=args.eval_dataset)
-    print(f"training done at iter {it}", flush=True)
+                        eval_dataset=args.eval_dataset,
+                        profile_dir=os.path.join(args.output, "profile") if args.profile
+                        else None)
+    say(f"training done at iter {it}", flush=True)
     return it
 
 
@@ -165,6 +190,11 @@ def main(argv=None) -> int:
                          "--size, --instances), not --dataset")
     ap.add_argument("--output", default="./output")
     ap.add_argument("--wandb", action="store_true")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace steps 10-15 with torch.profiler into <output>/profile")
+    ap.add_argument("--distributed", action="store_true",
+                    help="one rank of a data-parallel run started by "
+                         "`python -m torch.distributed.run`")
     ap.add_argument("--batch", type=int, default=2, help="synthetic batches")
     ap.add_argument("--size", type=int, default=1024, help="synthetic batches")
     ap.add_argument("--instances", type=int, default=8, help="synthetic batches")
@@ -190,12 +220,22 @@ def main(argv=None) -> int:
     cfg = get_config(args.config, dict(args.set))
     if args.max_iter:
         cfg = update(cfg, {"train.optimizer.max_iter": args.max_iter})
-    trainer = Trainer(cfg, device=args.device, seed=args.seed)
-    if looped:
-        train(trainer, args)
-    else:
-        args.steps = 3 if args.steps is None else args.steps
-        quick_run(trainer, args)
+    device = init_distributed(args.device) if args.distributed else args.device
+    try:
+        global_batch = (args.batch if args.synthetic or not looped
+                        else cfg.train.ims_per_batch)
+        if global_batch % world_size():
+            raise ValueError(f"a global batch of {global_batch} images does not divide "
+                             f"over {world_size()} ranks")
+        trainer = Trainer(cfg, device=device, seed=args.seed)
+        if looped:
+            train(trainer, args)
+        else:
+            args.steps = 3 if args.steps is None else args.steps
+            quick_run(trainer, args)
+    finally:
+        if args.distributed:
+            torch.distributed.destroy_process_group()
     return 0
 
 

@@ -6,6 +6,12 @@ PyTorch's own format: one directory per step, `<directory>/<step>/state.pt`
 A directory of weights only (`save_state` of {"step", "model"}, as
 `tools/convert_orbax.py` writes from a JAX checkpoint) is read by
 `model_state` for evaluation and serving, and cannot be resumed.
+
+Under data parallelism (`parallel/`) every rank holds the same state: rank
+0 writes, and every rank waits at a barrier after each save, so that no
+rank reads or lists a step before it is complete; every rank reads the
+same step after a barrier. The JAX package's orbax manager writes from
+every process into one directory.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
+
+from bm2f_tpu_torch.parallel import barrier, rank
 
 STATE_FILE = "state.pt"
 
@@ -40,8 +48,11 @@ class Checkpointer:
         directory, renamed when complete), then deletes all but the newest
         `max_to_keep` steps. A step already on disk is kept as it is, unless
         `force`, which replaces it (the end of a run saves with force).
-        Returns whether it wrote."""
-        return self.save_state(step, trainer.state_dict(), force)
+        Rank 0 writes and every rank waits for it. Returns whether this
+        rank wrote."""
+        wrote = rank() == 0 and self.save_state(step, trainer.state_dict(), force)
+        barrier()
+        return wrote
 
     def save_state(self, step: int, state: Dict[str, object], force: bool = False) -> bool:
         """`save` of a state dict: a trainer's, or {"step", "model"} for
@@ -62,7 +73,9 @@ class Checkpointer:
 
     def restore(self, trainer, step: Optional[int] = None) -> int:
         """Loads `step` (the latest when None) into `trainer`, bit for bit.
-        Returns the step; raises FileNotFoundError when there is none."""
+        Returns the step; raises FileNotFoundError when there is none.
+        Every rank reads the same step, after a barrier."""
+        barrier()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -88,6 +101,7 @@ class Checkpointer:
         restore the whole state (model, optimizer, step, generator) and
         return its step; otherwise leave the fresh trainer as it is and
         return None."""
+        barrier()
         if resume and self.latest_step() is not None:
             return self.restore(trainer)
         return None

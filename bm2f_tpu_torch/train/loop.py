@@ -13,16 +13,27 @@
   before the last (`dispatch_eval`, as at root train.py:127-145), its
   metrics put into the storage as `eval/<key>` and written at once.
 
-The scalars carry `lr` and `eta_hours` as the JAX loop's do.
+The scalars carry `lr` and `eta_hours` as the JAX loop's do. With
+`profile_dir`, steps 10-15 are traced with `torch.profiler` (root
+train.py:109-125 traces them with `jax.profiler`).
+
+Under data parallelism (`parallel/`) every rank runs this loop on its rows
+of the global batch: the trainer's metrics are already the global ones,
+the writers write on rank 0 only (`utils/events.py`), `ckpt.save` writes on
+rank 0 while the others wait, and the evaluation runs on every rank on the
+unwrapped model, each on its shard of the dataset, and gathers the
+evaluators (`eval.run_eval` takes the rank and world from the group).
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, Iterable, Iterator, List, Mapping, Sequence
+from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Sequence
 
 import torch
 
+from bm2f_tpu_torch.parallel import local_rows, rank
 from bm2f_tpu_torch.train.trainer import synthetic_batch
 
 # how many dispatched-but-unpulled steps may be in flight (train.py:37)
@@ -30,6 +41,8 @@ ASYNC_DEPTH = 4
 # the batch keys the step reads ("dino_feats" only where the mapper gives
 # them: the temporal pairwise loss's DINO patch features)
 BATCH_KEYS = ("images", "labels", "masks", "valid", "dino_feats")
+# the iterations `--profile` traces (root train.py:109, :124)
+PROFILE_STEPS = (10, 15)
 
 
 def to_device(batch: Mapping[str, object], device: torch.device) -> dict:
@@ -64,13 +77,48 @@ def dispatch_eval(cfg, model, dataset: str) -> Dict[str, float]:
         model.train()
 
 
+class StepProfiler:
+    """A `torch.profiler` trace of the iterations `PROFILE_STEPS` (and of
+    fewer when the run ends first), written to
+    `<directory>/rank<r>.pt.trace.json` (Chrome's trace format)."""
+
+    def __init__(self, directory: str, device: torch.device):
+        self.directory = directory
+        self.device = device
+        self.prof = None
+
+    def at(self, it: int) -> None:
+        """Called with the iteration about to run and after the last."""
+        if it == PROFILE_STEPS[0] and self.prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif it >= PROFILE_STEPS[1]:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        self.prof.export_chrome_trace(
+            os.path.join(self.directory, f"rank{rank()}.pt.trace.json"))
+        self.prof = None
+
+
 def run_train_loop(cfg, trainer, loader: Iterator[Mapping[str, object]],
                    first_batch: Mapping[str, object], ckpt, storage,
-                   writers: Sequence, eval_dataset: str = "") -> int:
+                   writers: Sequence, eval_dataset: str = "",
+                   profile_dir: Optional[str] = None) -> int:
     """Steps `trainer` from its `step_count` to `cfg.train.optimizer.max_iter`
     on `first_batch`, then the batches of `loader`, one a step, evaluating
     `eval_dataset` (when given) every `train.eval_period` steps before the
-    last. Returns the last iteration."""
+    last, and tracing the steps `PROFILE_STEPS` into `profile_dir` (when
+    given). Returns the last iteration."""
     max_iter = cfg.train.optimizer.max_iter
     log_period = max(int(cfg.train.log_period), 1)
     lr_sched = trainer.optimizer.schedule
@@ -102,8 +150,11 @@ def run_train_loop(cfg, trainer, loader: Iterator[Mapping[str, object]],
                 w.write(storage)
         host_rows.clear()
 
+    profiler = StepProfiler(profile_dir, trainer.device) if profile_dir else None
     batch = to_device(first_batch, trainer.device)
     while it < max_iter:
+        if profiler is not None:
+            profiler.at(it)
         metrics = trainer.step(batch)  # dispatched, not waited for
         if not metric_keys:
             metric_keys = list(metrics)
@@ -124,6 +175,8 @@ def run_train_loop(cfg, trainer, loader: Iterator[Mapping[str, object]],
             storage.put_scalars(it, **{f"eval/{k}": float(v) for k, v in res.items()})
             for w in writers:
                 w.write(storage, force=True)
+    if profiler is not None:
+        profiler.stop()
     flush()
     ckpt.save(it, trainer, force=True)
     return it
@@ -132,11 +185,14 @@ def run_train_loop(cfg, trainer, loader: Iterator[Mapping[str, object]],
 def synthetic_loader(batch: int, size: int, instances: int, seed: int,
                      num_classes: int = 80, start: int = 0) -> Iterable[dict]:
     """Seeded synthetic batches in the JAX bench's recipe
-    (`trainer.synthetic_batch`), a new one a step: the batch of step i is
-    drawn from seed + i, so that a run resumed at step `start` reads what an
-    uninterrupted one would. On the host, as a data loader hands them."""
+    (`trainer.synthetic_batch`), a new one a step: the global batch of
+    `batch` images of step i is drawn from seed + i, so that a run resumed
+    at step `start` reads what an uninterrupted one would, and this rank
+    takes its rows of it (`parallel.local_rows`), so that the ranks
+    together read what one process reads. On the host, as a data loader
+    hands them."""
     i = start
     while True:
-        yield {k: v.numpy() for k, v in synthetic_batch(
-            batch, size, instances, seed + i, num_classes, device="cpu").items()}
+        yield {k: v.numpy() for k, v in local_rows(synthetic_batch(
+            batch, size, instances, seed + i, num_classes, device="cpu")).items()}
         i += 1

@@ -31,6 +31,25 @@ f32 (`utils.precision.f32_scope`: no TF32), and every step is deterministic
 step with the same bits), whatever the global flags say.
 `state_dict()` holds what the JAX `TrainState` holds, for
 `train.checkpoint.Checkpointer`.
+
+Data parallelism (`parallel/`): a trainer built in a process group trains
+its rank's rows of the global batch, the JAX package's SPMD step over the
+"data" mesh axis (bm2f_tpu/train/trainer.py:233-248) in PyTorch's idiom.
+The model is wrapped in `DistributedDataParallel` (`broadcast_buffers=False`:
+the FrozenBN buffers are constants) with `sum_gradients` as its comm hook,
+so that every rank holds the SUM of the ranks' gradients, not DDP's
+average: the criteria divide each rank's numerators by the global batch's
+denominators, so the summed gradient is the JAX step's gradient of the
+global loss. `grad_norm`, the global-norm clip and AdamW then see what
+they see in JAX, and every rank makes the same update. The reported losses
+are summed over the ranks (the global ones), in one all-reduce of a small
+vector, with no synchronise of the host. Every parameter of the image,
+video, box-supervised and MaskFormer-v1 models gets a gradient in every
+step, so DDP needs no `find_unused_parameters`. The assignment is each
+rank's own (the counterpart of `make_sharded_assign_fn`): the criterion
+hands `assign_fn` only this rank's costs. The AdamW groups are built from
+the unwrapped model, and `state_dict()` is the unwrapped model's, so a
+checkpoint written at one world size resumes at another.
 """
 
 from __future__ import annotations
@@ -41,6 +60,8 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from bm2f_tpu_torch.config import Config
 from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, draw_points, set_criterion
@@ -54,6 +75,7 @@ from bm2f_tpu_torch.losses.weaksup_criterion import weaksup_set_criterion
 from bm2f_tpu_torch.losses.weaksup_video import video_weaksup_set_criterion
 from bm2f_tpu_torch.matching.hungarian import make_assign_fn
 from bm2f_tpu_torch.models.maskformer import build_model, normalize_images
+from bm2f_tpu_torch.parallel import check_mesh, global_sum
 from bm2f_tpu_torch.video import build_video_model
 from bm2f_tpu_torch.train.optim import AdamW
 from bm2f_tpu_torch.utils.precision import deterministic_scope, f32_scope
@@ -132,20 +154,37 @@ class StageTimer:
         self._t = now
 
 
+def sum_gradients(group, bucket):
+    """DDP comm hook: the bucket's gradients (a `dist.GradBucket`) summed
+    over the ranks, a future of the summed tensor (DDP's default hook
+    divides the sum by the world size). Unannotated: DDP compares the
+    annotation with the class, and this module's annotations are strings."""
+    fut = dist.all_reduce(bucket.buffer(), group=group, async_op=True).get_future()
+    return fut.then(lambda f: f.value()[0])
+
+
 class Trainer:
-    """Image or video training on one device, mask- or box-supervised. The
-    model is drawn from `seed` (`build_model`, or `build_video_model` for
-    task "video"); the mask criterion's random points come from a
-    `torch.Generator` on `device` seeded with `seed` (the weak criteria draw
-    none)."""
+    """Image or video training on one device, mask- or box-supervised; in a
+    process group, data-parallel over its ranks (see the module's
+    docstring). The model is drawn from `seed` (`build_model`, or
+    `build_video_model` for task "video"); the mask criterion's random
+    points come from a `torch.Generator` on `device` seeded with `seed`
+    (the weak criteria draw none)."""
 
     def __init__(self, cfg: Config, device="cuda", seed: int = 0):
         _check_trainable(cfg)
+        check_mesh(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.video = cfg.task == "video"
         build = build_video_model if self.video else build_model
         self.model = build(cfg, device=self.device, seed=seed).train()
+        # the module the step calls: DDP's wrapper in a process group
+        self.forward = self.model
+        if dist.is_available() and dist.is_initialized():
+            # device_ids None: the module is on one device, its inputs too
+            self.forward = DistributedDataParallel(self.model, broadcast_buffers=False)
+            self.forward.register_comm_hook(None, sum_gradients)
         self.ccfg = criterion_config(cfg)
         self.assign_fn = make_assign_fn(cfg)
         self.optimizer = AdamW(self.model, cfg.train.optimizer)
@@ -188,7 +227,7 @@ class Trainer:
         The weak criterion's pairwise warmup and pixel threshold are read at
         `step_count`, before the step's update, as JAX reads `state.step`."""
         x = normalize_images(batch["images"], self.cfg.model)
-        out = self.model(x, deform_impl=deform_impl)
+        out = self.forward(x, deform_impl=deform_impl)
         if mark is not None:
             mark("forward")
         if self.cfg.model.loss.sup_type != "mask":
@@ -237,10 +276,10 @@ class Trainer:
              points: Optional[Mapping[str, torch.Tensor]] = None,
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         """One optimizer step. Returns every loss, total_loss and grad_norm
-        as 0-d device tensors. `mark(stage)`, when given, is called after
-        forward, matcher_costs, assign, losses, backward and optimizer.
-        Deterministic and, for an f32 model, in f32, whatever the global
-        flags say."""
+        as 0-d device tensors, the global batch's in a process group.
+        `mark(stage)`, when given, is called after forward, matcher_costs,
+        assign, losses, backward and optimizer. Deterministic and, for an
+        f32 model, in f32, whatever the global flags say."""
         with f32_scope(self.cfg.model.dtype), deterministic_scope():
             self.optimizer.zero_grad()
             total, losses = self.loss(batch, points, mark=mark)
@@ -250,7 +289,9 @@ class Trainer:
             grad_norm = self.optimizer.step()
             if mark is not None:
                 mark("optimizer")
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
+        # the global batch's losses: the sum of the ranks' terms
+        keys = [*losses, "total_loss"]
+        summed = global_sum(torch.stack([*losses.values(), total]).detach())
+        metrics = dict(zip(keys, summed.unbind(0)))
         metrics["grad_norm"] = grad_norm
         return metrics

@@ -9,7 +9,11 @@ evaluation, so that its metrics are written at their iteration).
 
 The port's copy of the JAX package's bm2f_tpu/utils/events.py (which is
 JAX-free), so that both packages log the same lines; the port imports
-nothing of the JAX package."""
+nothing of the JAX package. One departure: under data parallelism every
+writer does nothing off rank 0 (it opens no file and prints nothing), where
+the JAX package's write from every process; every rank holds the same
+global metrics, and several ranks appending to one metrics.json would
+interleave their lines."""
 
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import os
 import time
 from collections import defaultdict, deque
 from typing import Dict, List, Optional
+
+from bm2f_tpu_torch.parallel import rank
 
 
 class EventStorage:
@@ -44,10 +50,11 @@ class ConsoleWriter:
     def __init__(self, log_period: int = 20, max_keys: int = 8):
         self.log_period = log_period
         self.max_keys = max_keys
+        self.active = rank() == 0
         self._t = time.time()
 
     def write(self, storage: EventStorage, force: bool = False):
-        if storage.step % self.log_period != 0 and not force:
+        if not self.active or (storage.step % self.log_period != 0 and not force):
             return
         s = storage.smoothed()
         dt = (time.time() - self._t) / max(self.log_period, 1)
@@ -62,12 +69,14 @@ class ConsoleWriter:
 
 class JSONWriter:
     def __init__(self, path: str, log_period: int = 20):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self.f = open(path, "a")
+        self.f = None
+        if rank() == 0:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self.f = open(path, "a")
         self.log_period = log_period
 
     def write(self, storage: EventStorage, force: bool = False):
-        if storage.step % self.log_period != 0 and not force:
+        if self.f is None or (storage.step % self.log_period != 0 and not force):
             return
         rec = {"iteration": storage.step, **storage.smoothed()}
         self.f.write(json.dumps(rec) + "\n")
@@ -76,12 +85,14 @@ class JSONWriter:
 
 class TensorBoardWriter:
     def __init__(self, log_dir: str, log_period: int = 20):
-        try:
-            from torch.utils.tensorboard import SummaryWriter
+        self.w = None
+        if rank() == 0:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
 
-            self.w = SummaryWriter(log_dir)
-        except Exception:
-            self.w = None
+                self.w = SummaryWriter(log_dir)
+            except Exception:
+                self.w = None
         self.log_period = log_period
 
     def write(self, storage: EventStorage, force: bool = False):
@@ -96,6 +107,10 @@ class WandBWriter:
 
     def __init__(self, project: str = "bm2f_tpu", name: str = "",
                  entity: str = "", group: str = "", log_period: int = 20):
+        self.run = None
+        self.log_period = log_period
+        if rank() != 0:
+            return
         try:
             import wandb
 
@@ -106,7 +121,6 @@ class WandBWriter:
             self.wandb = wandb
         except Exception:
             self.run = None
-        self.log_period = log_period
 
     def write(self, storage: EventStorage, force: bool = False):
         if self.run is None or (storage.step % self.log_period != 0 and not force):

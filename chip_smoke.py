@@ -183,6 +183,25 @@ Phases, each printing its own line:
      the 8-frame bucket) twice, every count set to 0 just before and read
      just after (K1 6 launches a clip); first and warm time, peak memory,
      K1 on the clip's first-layer inputs;
+  G1-G3. data-parallel training (`bm2f_tpu_torch/parallel/`), after 18 (G3
+     after 26, on phase 19's split):
+  G1. `parallel.init_distributed` starts a world-1 NCCL group; its trainer
+     is wrapped in `DistributedDataParallel` with the summing hook; 3 steps
+     at B=2, 1024x1024 bitwise equal to 3 steps of the plain trainer from
+     the same seed (metrics and the whole state), every count set to 0
+     just before and read just after (K1 and K2 6 launches a step);
+  G2. two spawned processes on the one card in a gloo group started here
+     (the package never picks gloo on the card), each 1 image of the same
+     global B=2 batches, 2 steps, against one process on the global
+     batches: the first step's losses and grad_norm within G2_REL, its
+     update within AdamW's bound on a gradient G2_REL off, the second
+     step's total loss within what the first update's differences move it
+     by (to first order, doubled), the two ranks' parameters bitwise equal
+     after every step, K1 and K2 6 launches a step on each rank (counted
+     in the ranks);
+  G3. phase 26's run as the one rank of `python -m torch.distributed.run
+     --nproc-per-node 1 -m bm2f_tpu_torch.train --distributed` (NCCL):
+     trains with an eval and checkpoints, then `--eval-only --resume`;
   A-F. the user entry points and the MaskFormer-v1 models, each where its
      data lives (B, D and E after 26 on phase 19's split, C after 37 on
      phase 27's, A and F after the video phases), every count set to 0
@@ -383,6 +402,20 @@ V1_RUNS = {
 # 12 transformer layers that the norms renormalise: 1e-6 to 1e-5; TF32
 # anywhere (u = 4.9e-4) would put 1e-3 there. Held as Swin-L's backbone is
 V1_F64_REL = 2e-4
+# the data-parallel phases (G1-G3): G1's steps of the world-1 NCCL group
+# against the plain trainer (bitwise), G2's steps of two ranks on the one
+# card (gloo), each taking 1 image of phase 10's global B=2 batch
+DDP_STEPS, G2_STEPS = 3, 2
+# G2 against the one process on the global batch: the sums of f32 terms in
+# another order, nothing else (each rank's batch of one runs cuDNN's and
+# cuBLAS's kernels at another batch, which may block their sums otherwise,
+# and the two ranks' gradients add on the host through gloo): the losses
+# and grad_norm within G2_REL, and the first update of every parameter
+# within the bound AdamW puts on a gradient G2_REL off (`adam_update_bound`;
+# the CPU's SMALL step reads 4.7e-6 on the losses and 1.2e-5 of a tensor's
+# gradient norm between world sizes, tests/torch_ddp_cases.py, held at 1e-4
+# there and here)
+G2_REL = 1e-4
 
 
 def log(phase: str, **fields) -> None:
@@ -1308,6 +1341,248 @@ def checkpoint_resume(trainer, batch, dev):
                              f"{RESUME_GRAD_NORM_RTOL})")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_batches(dev, n: int) -> list:
+    """Phase 10's global batches (B=2, 1024x1024, 8 targets), seeds 0..n-1."""
+    from bm2f_tpu_torch.train.trainer import synthetic_batch
+
+    return [synthetic_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_INSTANCES, seed=i, device=dev)
+            for i in range(n)]
+
+
+def _steps(trainer, batches) -> tuple:
+    """Each batch's step: (metrics as floats, host-clock ms to a synchronise)."""
+    metrics, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics.append({k: v.item() for k, v in trainer.step(b).items()})
+        ms.append((time.perf_counter() - t) * 1e3)
+    return metrics, ms
+
+
+def ddp_world1(dev):
+    """Phase G1: `parallel.init_distributed` starts a world-1 NCCL group
+    (the variables `torch.distributed.run` sets, for one rank); the trainer
+    it builds is wrapped in DDP with the summing hook. Its 3 steps must end
+    bitwise equal to 3 steps of the plain trainer from the same seed on the
+    same batches (metrics and the whole state). Returns K1's and K2's
+    launches over the DDP steps."""
+    import os
+
+    import torch.distributed as dist
+
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+    from bm2f_tpu_torch.parallel import init_distributed
+
+    batches = ddp_batches(dev, DDP_STEPS)
+    plain = make_trainer(dev)
+    want, plain_ms = _steps(plain, batches)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        rank_dev = init_distributed("cuda")
+        backend = dist.get_backend()
+        trainer = make_trainer(rank_dev)
+        wrapped = type(trainer.forward).__name__
+        reset_counts()
+        got, ddp_ms = _steps(trainer, batches)
+        launches = (ms_deform_attn_cuda.launches, ms_deform_attn_bwd_cuda.launches)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    n_layers = len(trainer.model.sem_seg_head.pixel_decoder.transformer.encoder.layers)
+    bad = _same_state(trainer.state_dict(), plain.state_dict())
+    log("ddp_world1", backend=backend, device=str(rank_dev), module=wrapped,
+        k1_launches=launches[0], k2_launches=launches[1],
+        total_loss=",".join(f"{m['total_loss']:.6f}" for m in got),
+        grad_norm=",".join(f"{m['grad_norm']:.6f}" for m in got),
+        ddp_step_ms=",".join(f"{v:.2f}" for v in ddp_ms),
+        plain_step_ms=",".join(f"{v:.2f}" for v in plain_ms), differing_state=len(bad))
+    if backend != "nccl" or wrapped != "DistributedDataParallel":
+        raise AssertionError(f"G1 ran on {backend} with {wrapped}")
+    if launches != (n_layers * DDP_STEPS,) * 2:
+        raise AssertionError(f"G1: K1, K2 launched {launches} times in {DDP_STEPS} steps")
+    if got != want or bad:
+        raise AssertionError(f"G1 differs from the plain trainer: metrics equal "
+                             f"{got == want}, state {bad[:8]}")
+    return launches
+
+
+def g2_rank(rank: int, port: int, out_dir: str, device: str, queue) -> None:
+    """One of phase G2's two ranks, a spawned process on the card: a gloo
+    group started here (the package never picks gloo on the card), the
+    trainer DDP-wrapped, G2_STEPS steps on its row of each global batch.
+    Rank 0 saves the parameters after the first step; each rank checks
+    that its parameters equal rank 0's bit for bit after every step."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, str(ROOT))
+        from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+        from bm2f_tpu_torch.parallel import local_rows
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=2)
+        trainer = make_trainer(dev)
+        batches = [local_rows(b) for b in ddp_batches(dev, G2_STEPS)]
+        reset_counts()
+        metrics, equal, step_ms = [], [], []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append({k: v.item() for k, v in trainer.step(b).items()})
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            flat = torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()])
+            other = flat.clone()
+            dist.broadcast(other, src=0)
+            equal.append(torch.equal(flat, other))
+            if i == 0 and rank == 0:
+                torch.save({n: p.detach().cpu() for n, p in trainer.model.named_parameters()},
+                           Path(out_dir) / "g2_step1.pt")
+        queue.put((rank, {"metrics": metrics, "equal_to_rank0": equal, "step_ms": step_ms,
+                          "launches": (ms_deform_attn_cuda.launches,
+                                       ms_deform_attn_bwd_cuda.launches),
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def adam_update_bound(g, lr_eff: float, rel: float, ulp):
+    """The largest |update_a - update_b| of AdamW's first update, per
+    element, when the clipped gradient `g` (f64) of two sides differs by
+    `rel` of its tensor's norm plus `rel` of itself: lr_eff (g / (|g| +
+    eps)) moves by lr_eff eps |dg| / (|g| + eps)^2, at most the 2 lr_eff of
+    a flipped sign; plus the f32 arithmetic of the update (some seven
+    roundings of values up to lr_eff, 4 ulp of lr_eff) and an ulp of the new
+    parameter, on each side."""
+    ag = g.abs()
+    tau = rel * (g.norm() + ag)
+    return (lr_eff * torch.clamp(1e-8 * tau / (ag + 1e-8) ** 2, max=2.0)
+            + 8 * 2.0 ** -23 * lr_eff + 2 * ulp)
+
+
+def ddp_two_ranks_gloo(dev):
+    """Phase G2: two processes on the one card in a gloo group, each one
+    image of the global B=2 batch, against the one process's steps on the
+    global batch: the first step's losses and grad_norm within G2_REL, its
+    update within `adam_update_bound`, the second step's total loss within
+    what the first update's differences move it by, both ranks' parameters
+    bitwise equal, K1 and K2 6 launches a step on each rank. Returns the
+    two ranks' launches summed."""
+    import multiprocessing as mp
+
+    plain = make_trainer(dev)
+    batches = ddp_batches(dev, G2_STEPS)
+    want, plain_ms = _steps(plain, batches[:1])
+    ref = {n: p.detach().cpu().clone() for n, p in plain.model.named_parameters()}
+    grads = {n: p.grad.detach().cpu().double() for n, p in plain.model.named_parameters()}
+    lr = plain.optimizer.schedule(0)
+    mults = {g.name: g.lr_mult for g in plain.optimizer.groups}
+    clip_max = plain.optimizer.cfg.clip_gradients
+    more, ms = _steps(plain, batches[1:])
+    want += more
+    plain_ms += ms
+    # the second step's gradient, at the plain side's parameters after the first
+    grads2 = {n: p.grad.detach().cpu().double() for n, p in plain.model.named_parameters()}
+    del plain
+    torch.cuda.empty_cache()
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_g2_", dir=ROOT / "output")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    t0 = time.perf_counter()
+    device = "cuda:0" if dev.type == "cuda" else str(dev)
+    procs = [ctx.Process(target=g2_rank, args=(r, port, out_dir, device, queue))
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    try:
+        got = dict(queue.get(timeout=600) for _ in procs)
+        got1 = torch.load(Path(out_dir) / "g2_step1.pt", weights_only=True)
+    finally:
+        for proc in procs:
+            proc.join(timeout=120)
+            if proc.is_alive():
+                proc.kill()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    for r in (0, 1):
+        if isinstance(got[r], str):
+            raise AssertionError(f"G2 rank {r} failed:\n{got[r]}")
+    r0, r1 = got[0], got[1]
+    rels = [{k: abs(m[k] - w[k]) / max(abs(w[k]), 1e-12) for k in w}
+            for m, w in zip(r0["metrics"], want)]
+    worst_keys = [max(r, key=r.get) for r in rels]
+    loss_rel = rels[0][worst_keys[0]]
+    norm = torch.sqrt(sum((g ** 2).sum() for g in grads.values()))
+    clip = clip_max / norm if norm >= clip_max else 1.0
+    excess = {}
+    for n, w in ref.items():
+        o = got1[n]
+        ulp = torch.from_numpy(np.spacing(np.maximum(w.abs().numpy(), o.abs().numpy())))
+        bound = adam_update_bound(grads[n] * clip, lr * mults[n], G2_REL, ulp.double())
+        excess[n] = ((o.double() - w.double()).abs() / bound).max().item()
+    worst = max(excess, key=excess.get)
+    # the second step starts from parameters the first left apart (within
+    # the update bound); to first order its total loss moves by
+    # sum_i |dL/dp_i| |dp_i|, held at twice that (the second order) plus
+    # the summation order's G2_REL
+    moved = sum((grads2[n] * (got1[n].double() - ref[n].double())).abs().sum().item()
+                for n in ref)
+    total2 = abs(r0["metrics"][1]["total_loss"] - want[1]["total_loss"])
+    total2_bound = 2 * moved + G2_REL * abs(want[1]["total_loss"])
+    from bm2f_tpu_torch.config import get_config
+
+    n_layers = get_config(CONFIG).model.pixel_decoder.transformer_enc_layers
+    log("ddp_two_ranks_gloo", steps=G2_STEPS, wall_s=f"{wall_s:.2f}",
+        step_ms=",".join(f"{v:.2f}" for v in r0["step_ms"]),
+        plain_step_ms=",".join(f"{v:.2f}" for v in plain_ms),
+        max_rel_by_step=",".join(f"{k}:{r[k]:.3e}" for k, r in zip(worst_keys, rels)),
+        worst_update_excess=f"{excess[worst]:.3e}",
+        step2_total_diff=f"{total2:.3e}", step2_total_bound=f"{total2_bound:.3e}",
+        worst_param=worst, ranks_bitwise=r0["equal_to_rank0"] + r1["equal_to_rank0"],
+        launches=[r0["launches"], r1["launches"]],
+        peak_gib=",".join(f"{g['peak_gib']:.2f}" for g in (r0, r1)),
+        total_loss=",".join(f"{m['total_loss']:.6f}" for m in r0["metrics"]))
+    if r0["metrics"] != r1["metrics"] or not all(r0["equal_to_rank0"] + r1["equal_to_rank0"]):
+        raise AssertionError("G2: the two ranks' metrics or parameters differ")
+    if not (loss_rel <= G2_REL and excess[worst] <= 1.0 and total2 <= total2_bound):
+        raise AssertionError(f"G2 against one process: first step's losses {loss_rel:.3e} "
+                             f"(limit {G2_REL}), update {worst} {excess[worst]:.3e} of its "
+                             f"bound, second step's total loss {total2:.3e} (limit "
+                             f"{total2_bound:.3e})")
+    for g in (r0, r1):
+        if tuple(g["launches"]) != (n_layers * G2_STEPS,) * 2:
+            raise AssertionError(f"G2: K1, K2 launched {g['launches']} on a rank")
+    return tuple(a + b for a, b in zip(r0["launches"], r1["launches"]))
+
+
 def write_eval_dataset(out_dir: Path):
     """Phase 19: the synthetic dataset under a new directory of `out_dir`,
     registered. Returns (its root, {dataset: evaluator type})."""
@@ -1671,21 +1946,28 @@ def weak_repeats(batches, dev, config=WEAK_CONFIG, over=None):
         raise AssertionError(f"two weak steps from one seed differ in {bad[:8]}")
 
 
-def entry_point_run(data_root: str):
+def entry_point_run(data_root: str, distributed: bool = False):
     """Phase 26: the train entry point as a subprocess on the card, trained
-    and evaluated on phase 19's split, then `--eval-only --resume`. Returns
-    its wall seconds."""
+    and evaluated on phase 19's split, then `--eval-only --resume`; with
+    `distributed` (phase G3) both runs as the one rank of `python -m
+    torch.distributed.run --nproc-per-node 1 ... --distributed` (NCCL).
+    Returns its wall seconds."""
     from bm2f_tpu_torch.train.checkpoint import Checkpointer
 
     out = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=ROOT / "output")
-    base = [sys.executable, "-m", "bm2f_tpu_torch.train", "--config", ENTRY_CONFIG,
+    base = ["--config", ENTRY_CONFIG,
             "--dataset", "coco_2017_val", "--data-root", data_root, "--output", out,
             "--set", "train.ims_per_batch=2", "--set", f"train.eval_period={ENTRY_PERIOD}",
             "--set", f"train.checkpoint_period={ENTRY_PERIOD}"]
 
     def run(extra):
+        launch = [sys.executable, "-m", "bm2f_tpu_torch.train"]
+        if distributed:
+            launch = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+                      "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+                      "-m", "bm2f_tpu_torch.train", "--distributed"]
         t0 = time.perf_counter()
-        res = subprocess.run(base + extra, cwd=ROOT, capture_output=True, text=True,
+        res = subprocess.run(launch + base + extra, cwd=ROOT, capture_output=True, text=True,
                              timeout=600)
         if res.returncode != 0:
             raise AssertionError(f"{' '.join(extra)}: exit {res.returncode}\n"
@@ -1710,7 +1992,8 @@ def entry_point_run(data_root: str):
     if (f"resumed from step {ENTRY_ITERS}" not in eval_out or not evals
             or evals[0]["iteration"] != ENTRY_ITERS or "eval/AP" not in evals[0]):
         raise AssertionError(f"--eval-only: {eval_out[-2000:]}")
-    log("entry_point", config=ENTRY_CONFIG, max_iter=ENTRY_ITERS, train_eval_s=f"{train_s:.2f}",
+    log("entry_point_distributed" if distributed else "entry_point", config=ENTRY_CONFIG,
+        max_iter=ENTRY_ITERS, train_eval_s=f"{train_s:.2f}",
         eval_only_s=f"{eval_s:.2f}", checkpoints=steps,
         metrics_at_2=",".join(sorted(k for k in at[0] if k.startswith("eval/"))),
         eval_only=repr({k: round(v, 3) for k, v in evals[0].items()}))
@@ -2993,6 +3276,14 @@ def main() -> int:
     del trainer, batch
     torch.cuda.empty_cache()
 
+    # -- G1. DDP in a world-1 NCCL group, bitwise the plain trainer ---------------------
+    k_ddp1 = ddp_world1(dev)
+    torch.cuda.empty_cache()
+
+    # -- G2. two ranks on the one card in a gloo group against one process ------------
+    k_ddp2 = ddp_two_ranks_gloo(dev)
+    torch.cuda.empty_cache()
+
     # -- 19. the eval's data ------------------------------------------------------------
     data_root, _ = write_eval_dataset(ROOT / "output")
     try:
@@ -3032,6 +3323,9 @@ def main() -> int:
 
         # -- 26. the train entry point on the dataset, with an eval -----------------------
         entry_point_run(data_root)
+
+        # -- G3. the entry point as one rank of torch.distributed.run (NCCL) --------------
+        entry_point_run(data_root, distributed=True)
 
         # -- B. the demo on phase 19's images ----------------------------------------------
         k1_demo = demo_path(data_root)
@@ -3124,8 +3418,10 @@ def main() -> int:
         "launches": (launches + k1_train + k1_pd_f32 + k1_eval + k1_weak + k1_mask_wo_lsj
                      + k1_video_eval + k_video["mask"][0] + k_video["weak"][0]
                      + k1_swin_serve + k1_swin_train + k1_swin_video + k1_predictor
-                     + k1_demo + k1_demo_video + k1_tta + k1_oom),
+                     + k1_demo + k1_demo_video + k1_tta + k1_oom + k_ddp1[0] + k_ddp2[0]),
         "launches_by_path": {"serve": launches, "train": k1_train, "train_weak": k1_weak,
+                             "train_ddp_world1_nccl": k_ddp1[0],
+                             "train_ddp_two_ranks_gloo": k_ddp2[0],
                              "train_wo_lsj": k1_mask_wo_lsj,
                              "serve_bf16_pixel_decoder_f32": k1_pd_f32,
                              **{f"eval_{r}": n for r, (n, _) in eval_launches.items() if n},
@@ -3151,8 +3447,10 @@ def main() -> int:
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_bwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:118",
         "launches": (k2_train + k2_weak + k2_mask_wo_lsj + k_video["mask"][1]
-                     + k_video["weak"][1] + k2_swin_train),
+                     + k_video["weak"][1] + k2_swin_train + k_ddp1[1] + k_ddp2[1]),
         "launches_by_path": {"serve": k2_serve, "train": k2_train, "train_weak": k2_weak,
+                             "train_ddp_world1_nccl": k_ddp1[1],
+                             "train_ddp_two_ranks_gloo": k_ddp2[1],
                              "train_wo_lsj": k2_mask_wo_lsj, "train_bf16": 0,
                              "train_video": k_video["mask"][1],
                              "train_video_weak": k_video["weak"][1],

@@ -957,3 +957,78 @@ def test_video_train_step_launches_kernels_and_repeats(preset):
                           for k, v in sd["optimizer"][m].items()}})
     differing = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
     assert not differing, differing[:8]
+
+
+@pytest.mark.cuda
+def test_ddp_across_cards_matches_one_card(tmp_path):
+    """`coco_instance_r50` trained data-parallel over NCCL, one rank a card
+    (up to 4), 2 images a card at 512x512 for 2 steps, through
+    `tools/ddp_bench.py` under `torch.distributed.run`: every rank ends
+    with the same parameters, and the first step's losses and grad_norm
+    are one card's on the same global batch within the tool's REL (the sums
+    in another order). Skips below 2 cards."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from bm2f_tpu_torch.tools.ddp_bench import compare
+
+    require_cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more cards")
+    world = min(n, 4)
+    common = ["--ims-per-batch", str(2 * world), "--size", "512", "--steps", "2",
+              "--profile-steps", "1"]
+    root = Path(__file__).resolve().parent.parent
+    runs = {
+        "multi": [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                  str(world), "-m", "bm2f_tpu_torch.tools.ddp_bench"] + common,
+        "single": [sys.executable, "-m", "bm2f_tpu_torch.tools.ddp_bench", "--single",
+                   "--share-of", str(world)] + common,
+    }
+    for name, cmd in runs.items():
+        res = subprocess.run(cmd + ["--out", str(tmp_path / f"{name}.json")], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        assert res.returncode == 0, (name, res.stdout[-2000:], res.stderr[-4000:])
+    got = compare(str(tmp_path / "single.json"), str(tmp_path / "multi.json"))
+    assert got["max_rel_vs_single"] <= got["rel_bound"]
+
+
+@pytest.mark.cuda
+def test_ddp_eval_gathers_across_cards_on_nccl(tmp_path):
+    """`python -m bm2f_tpu_torch.train --distributed --eval-only` over NCCL,
+    one rank a card (up to 4), on a synthetic COCO split: each rank
+    evaluates its shard on its own card and `gather_evaluator`
+    (`all_gather_object` on NCCL) merges them; the one result printed is
+    one process's on the same seeded model. Skips below 2 cards."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from bm2f_tpu_torch.data.synthetic import write_synthetic_coco
+
+    require_cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more cards")
+    world = min(n, 4)
+    write_synthetic_coco(str(tmp_path / "data"), sizes=((480, 640), (640, 480), (500, 375),
+                                                        (600, 600), (427, 640)), seed=0)
+    args = ["-m", "bm2f_tpu_torch.train", "--eval-only", "--eval-dataset", "coco_2017_val",
+            "--data-root", str(tmp_path / "data"), "--output", str(tmp_path / "out")]
+    root = Path(__file__).resolve().parent.parent
+    outs = {}
+    for name, cmd in (("multi", ["-m", "torch.distributed.run", "--nproc-per-node",
+                                 str(world)] + args + ["--distributed"]),
+                      ("single", args)):
+        res = subprocess.run([sys.executable] + cmd, cwd=root, capture_output=True,
+                             text=True, timeout=900)
+        assert res.returncode == 0, (name, res.stdout[-2000:], res.stderr[-4000:])
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("eval ")]
+        assert len(lines) == 1, (name, res.stdout[-2000:])
+        outs[name] = json.loads(lines[0][5:])
+    assert outs["multi"].keys() == outs["single"].keys() and "eval/AP" in outs["multi"]
+    for k, v in outs["single"].items():
+        np.testing.assert_allclose(outs["multi"][k], v, rtol=1e-6, atol=1e-9, err_msg=k)

@@ -34,6 +34,10 @@ ENTRY_AND_V1_MODULES = ("bm2f_tpu_torch.demo", "bm2f_tpu_torch.demo_video",
                         "bm2f_tpu_torch.utils.async_predictor")
 
 
+# the data-parallel modules, which the walk must reach
+PARALLEL_MODULES = ("bm2f_tpu_torch.parallel", "bm2f_tpu_torch.parallel.mesh")
+
+
 def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -44,3 +48,4 @@ def test_port_imports_no_jax():
     modules = res.stdout.split("MODULES")[1].split()
     assert set(VIDEO_MODULES) <= set(modules), res.stdout
     assert set(ENTRY_AND_V1_MODULES) <= set(modules), res.stdout
+    assert set(PARALLEL_MODULES) <= set(modules), res.stdout

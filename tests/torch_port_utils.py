@@ -1,7 +1,7 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): the
 SMALL model overrides, the JAX-tree -> port-state_dict mapping for
-sub-modules, seeded weight perturbation, and the JAX criterion's own random
-points in the port's layout."""
+sub-modules, seeded weight perturbation, the JAX criterion's own random
+points in the port's layout, and the JAX package's data-parallel step."""
 
 from __future__ import annotations
 
@@ -108,3 +108,36 @@ def randomize(tree, rng: np.random.RandomState, scale: float = 0.05,
             return leaf
         return np.asarray(rng.randn(*np.shape(leaf)) * scale, np.float32)
     return jax.tree_util.tree_map_with_path(f, tree)
+
+
+def jax_global_step(config, overrides, variables, batch, step=0, key=11):
+    """One step of the JAX `Trainer` over a (2, 1) mesh of virtual CPU
+    devices (conftest's) on the global `batch`, from `variables` at `step`
+    (the AdamW counts too): the data-parallel step of the JAX package, whose
+    host LAP runs through `make_sharded_assign_fn`. Returns (metrics, new
+    params under the port's keys, step_rng, the JAX config)."""
+    import jax.numpy as jnp
+
+    from bm2f_tpu.config import get_config
+    from bm2f_tpu.train.optim import make_optimizer
+    from bm2f_tpu.train.trainer import Trainer, TrainState
+
+    jcfg = get_config(config, {**overrides, "mesh.data": 2})
+    trainer = Trainer(jcfg)
+    assert trainer.mesh.devices.shape == (2, 1)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    trainer.tx = make_optimizer(jcfg.train.optimizer, params)
+    opt_state = jax.tree.map(
+        lambda x: jnp.full_like(x, step) if x.dtype == jnp.int32 and x.ndim == 0 else x,
+        trainer.tx.init(params))
+    rng = jax.random.PRNGKey(key)
+    step_rng = jax.random.split(rng)[1]  # the step donates its state
+    state = TrainState(step=jnp.asarray(step, jnp.int32), params=params,
+                       frozen=variables["frozen"], opt_state=opt_state, rng=rng)
+    step_fn = trainer.compile_step(state)
+    with trainer.mesh:
+        new, metrics = step_fn(trainer.shard_state(state), batch)
+    pixel_decoder = jcfg.model.pixel_decoder.name
+    new_params = jax_tree_to_numpy({"params": jax.device_get(new.params)},
+                                   pixel_decoder=pixel_decoder)
+    return {k: float(v) for k, v in metrics.items()}, new_params, step_rng, jcfg
