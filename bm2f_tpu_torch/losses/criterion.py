@@ -14,7 +14,8 @@ losses with deep supervision (reference: mask2former/modeling/criterion.py:
 The batch is the GLOBAL batch, as in the JAX package's one SPMD step: under
 data parallelism each rank holds its rows of it, and every batch-wide
 denominator (`num_masks`, the class CE's weight sum of each layer) is the
-sum over all ranks, taken in one all-reduce of a small vector a step
+sum over the data group (every rank, or one rank of each model group under
+tensor parallelism), taken in one all-reduce of a small vector a step
 (`label_denominators`). Each rank's losses are its own numerators over
 those denominators, so the ranks' losses and gradients sum to the global
 ones (the trainer sums the gradients; it does not average them). Upstream
@@ -41,7 +42,7 @@ import torch.nn.functional as F
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import hungarian_matcher_costs
 from bm2f_tpu_torch.ops.sampling import point_sample
-from bm2f_tpu_torch.parallel import global_sum, local_rows, world_size
+from bm2f_tpu_torch.parallel import data_size, global_sum, local_rows
 
 
 @dataclass(frozen=True)
@@ -74,12 +75,12 @@ def draw_points(cfg: SetCriterionConfig, n_layers: int, batch: int,
     video criterion takes them).
 
     `batch` is this rank's: the points of the whole global batch (`batch` x
-    `world_size()` images) are drawn, as the JAX step draws them from one
-    key, and this rank keeps its rows (`local_rows`). So the ranks'
-    generators stay in step, and one rank's state is every rank's."""
+    `data_size()` images) are drawn, as the JAX step draws them from one
+    key, and this rank keeps its rows (`local_rows`, by data rank). So the
+    ranks' generators stay in step, and one rank's state is every rank's."""
     dev = generator.device
     n_rand = cfg.num_points - cfg.n_importance
-    glob = batch * world_size()
+    glob = batch * data_size()
     return {
         name: local_rows(torch.rand((n_layers, b, n, 2), generator=generator, device=dev),
                          axis=1)

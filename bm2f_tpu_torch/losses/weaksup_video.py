@@ -41,7 +41,7 @@ from bm2f_tpu_torch.losses.weaksup import (
     projection_loss,
     weighted_pairwise_loss,
 )
-from bm2f_tpu_torch.parallel import world_size
+from bm2f_tpu_torch.parallel import data_size
 from bm2f_tpu_torch.losses.weaksup_criterion import _BOUNDS
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import PAD_COST
@@ -269,7 +269,7 @@ def video_weaksup_set_criterion(
         # rank's share of the global batch's mean, which the trainer's sum
         # of the ranks' metrics completes (every rank holds as many pairs)
         losses["temp_pair_valid_prop"] = (targets["temporal_pairs_valid"].float().mean()
-                                          / world_size())
+                                          / data_size())
     if mark is not None:
         mark("losses")
     return total, losses

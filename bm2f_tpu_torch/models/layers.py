@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bm2f_tpu_torch.parallel import tp as tparallel
 
 _CONSTANTS: "OrderedDict" = OrderedDict()
 _CONSTANTS_LOCK = threading.Lock()
@@ -177,7 +178,9 @@ class MultiHeadAttention(nn.Module):
     layout (packed `in_proj_weight` (3C, C), `in_proj_bias`, `out_proj`),
     batch-first (B, N, C), in the query's dtype. `attn_bias` is an additive
     float bias broadcastable to (B, heads, Nq, Nk); the softmax runs in
-    f32 (f64 for an f64 query)."""
+    f32 (f64 for an f64 query). Under tensor parallelism (`tp`, see
+    `parallel.tp`) it runs the rank's heads: q, k and v column-parallel
+    by head, `out_proj` row-parallel, a per-head `attn_bias` sliced."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -185,11 +188,27 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = Linear(embed_dim, embed_dim)
+        self.tp = None
+
+    def tp_splits(self, size: int):
+        packed = {"in_proj_weight": tparallel.PACKED, "in_proj_bias": tparallel.PACKED}
+        return tparallel.head_splits(size, self.num_heads, packed, ("out_proj.weight",))
+
+    def tp_departures(self, size: int):
+        C = self.out_proj.in_features
+        return tparallel.head_departures(size, self.num_heads, C,
+                                         ("in_proj_weight", "in_proj_bias"),
+                                         ("out_proj.weight",), 3 * C)
 
     def forward(self, query, key, value, attn_bias=None):
-        C = query.shape[-1]
         H = self.num_heads
-        D = C // H
+        D = self.out_proj.in_features // H
+        if self.tp is not None:
+            query, key, value = tparallel.copy_inputs(self.tp, query, key, value)
+            H //= self.tp.size
+            if attn_bias is not None and attn_bias.dim() == 4 and attn_bias.shape[1] > 1:
+                attn_bias = attn_bias.narrow(1, self.tp.rank * H, H)
+        C = H * D
         w, b = cast(self.in_proj_weight, query.dtype), cast(self.in_proj_bias, query.dtype)
         q = F.linear(query, w[:C], b[:C])
         k = F.linear(key, w[C:2 * C], b[C:2 * C])
@@ -204,6 +223,8 @@ class MultiHeadAttention(nn.Module):
             logits = logits + attn_bias.to(logits.dtype)
         probs = torch.softmax(at_least_f32(logits), dim=-1).to(q.dtype)
         out = (probs @ v).transpose(1, 2).reshape(B, Nq, C)
+        if self.tp is not None:
+            return tparallel.row_linear(self.out_proj, out, self.tp)
         return self.out_proj(out)
 
 

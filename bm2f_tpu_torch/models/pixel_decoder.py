@@ -44,6 +44,7 @@ from bm2f_tpu_torch.models.layers import (
 from bm2f_tpu_torch.models.position_encoding import sine_position_embedding_2d
 from bm2f_tpu_torch.ops import ms_deform_attn, resize_bilinear, resize_nearest
 from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_plain
+from bm2f_tpu_torch.parallel import tp as tparallel
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -64,7 +65,11 @@ def _offset_bias_ring_init(n_heads: int, n_levels: int, n_points: int) -> np.nda
 
 class MSDeformAttnModule(nn.Module):
     """Deformable attention module (reference:
-    ops/modules/ms_deform_attn.py:34-125). query/value_src are (B, N, C)."""
+    ops/modules/ms_deform_attn.py:34-125). query/value_src are (B, N, C).
+    Under tensor parallelism (`tp`, see `parallel.tp`) it runs the rank's
+    M/T heads: `value_proj` column-parallel, the replicated
+    `sampling_offsets` and `attention_weights` read at the rank's heads'
+    rows, the deformable core on M/T heads, `output_proj` row-parallel."""
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int, n_points: int):
         super().__init__()
@@ -73,6 +78,26 @@ class MSDeformAttnModule(nn.Module):
         self.attention_weights = Linear(d_model, n_heads * n_levels * n_points)
         self.value_proj = Linear(d_model, d_model)
         self.output_proj = Linear(d_model, d_model)
+        self.tp = None
+
+    def tp_splits(self, size: int):
+        return tparallel.head_splits(
+            size, self.n_heads, {"value_proj.weight": tparallel.COLUMN,
+                                 "value_proj.bias": tparallel.COLUMN},
+            ("output_proj.weight",))
+
+    def tp_departures(self, size: int):
+        return tparallel.head_departures(size, self.n_heads, self.value_proj.in_features,
+                                         ("value_proj.weight", "value_proj.bias"),
+                                         ("output_proj.weight",))
+
+    def _head_linear(self, linear: Linear, x):
+        """`linear(x)` at this rank's heads' rows (all of them without `tp`)."""
+        if self.tp is None:
+            return linear(x)
+        w = tparallel.head_slice(linear.weight, self.tp, 0, self.n_heads)
+        b = tparallel.head_slice(linear.bias, self.tp, 0, self.n_heads)
+        return F.linear(x, cast(w, x.dtype), cast(b, x.dtype))
 
     def ring_bias(self) -> torch.Tensor:
         """The from-scratch value of `sampling_offsets.bias`."""
@@ -86,9 +111,13 @@ class MSDeformAttnModule(nn.Module):
         "plain" forces the plain PyTorch version (parity checks only)."""
         B, Q, C = query.shape
         M, L, P = self.n_heads, self.n_levels, self.n_points
-        value = self.value_proj(value_src).view(B, -1, M, C // M)
-        offsets = self.sampling_offsets(query).view(B, Q, M, L, P, 2)
-        attn = self.attention_weights(query).view(B, Q, M, L * P)
+        D = C // M
+        if self.tp is not None:
+            query, value_src = tparallel.copy_inputs(self.tp, query, value_src)
+            M //= self.tp.size
+        value = self.value_proj(value_src).view(B, -1, M, D)
+        offsets = self._head_linear(self.sampling_offsets, query).view(B, Q, M, L, P, 2)
+        attn = self._head_linear(self.attention_weights, query).view(B, Q, M, L * P)
         attn = torch.softmax(attn.float(), dim=-1).view(B, Q, M, L, P)  # f32
         # per-level normalizer (W, H) (reference ms_deform_attn.py:107-109)
         shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
@@ -102,10 +131,13 @@ class MSDeformAttnModule(nn.Module):
             out = ms_deform_attn(value, spatial_shapes, loc, attn)
         else:
             raise ValueError(f"unknown deform_impl {deform_impl!r}")
-        return self.output_proj(out.to(value.dtype))  # the core returns f32
+        out = out.to(value.dtype)  # the core returns f32
+        if self.tp is not None:
+            return tparallel.row_linear(self.output_proj, out, self.tp)
+        return self.output_proj(out)
 
 
-class DeformableEncoderLayer(nn.Module):
+class DeformableEncoderLayer(tparallel.ParallelFFN, nn.Module):
     """Post-norm deformable encoder layer (reference: msdeformattn.py:92-131)."""
 
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
@@ -121,7 +153,7 @@ class DeformableEncoderLayer(nn.Module):
                 deform_impl: str = "auto"):
         src = self.norm1(src + self.self_attn(
             src + pos, reference_points, src, spatial_shapes, deform_impl))
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        return self.norm2(src + self.ffn(src))
 
 
 @functools.lru_cache(maxsize=16)

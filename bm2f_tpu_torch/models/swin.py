@@ -44,6 +44,7 @@ import torch.utils.checkpoint
 
 from bm2f_tpu_torch.config import SwinConfig
 from bm2f_tpu_torch.models.layers import Conv2d, LayerNorm, Linear, at_least_f32, cast
+from bm2f_tpu_torch.parallel import tp as tparallel
 from bm2f_tpu_torch.ops import resize_bilinear
 
 
@@ -121,14 +122,37 @@ class WindowAttention(nn.Module):
                              persistent=False)
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
+        self.tp = None
+
+    def _packed(self):
+        return ("qkv.weight", "qkv.bias") if self.qkv.bias is not None else ("qkv.weight",)
+
+    def tp_splits(self, size: int):
+        return tparallel.head_splits(size, self.num_heads,
+                                     dict.fromkeys(self._packed(), tparallel.PACKED),
+                                     ("proj.weight",))
+
+    def tp_departures(self, size: int):
+        C = self.proj.in_features
+        return tparallel.head_departures(size, self.num_heads, C, self._packed(),
+                                         ("proj.weight",), 3 * C)
 
     def forward(self, x, attn_mask=None):
-        """x: (nW*B, N, C) with N = window^2; attn_mask (nW, N, N) or None."""
+        """x: (nW*B, N, C) with N = window^2; attn_mask (nW, N, N) or None.
+        Under tensor parallelism (`tp`, see `parallel.tp`) the rank's heads:
+        `qkv` column-parallel by head, the bias table's columns of those
+        heads, `proj` row-parallel."""
         Bw, N, C = x.shape
         H = self.num_heads
-        q, k, v = self.qkv(x).reshape(Bw, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+        D = C // H
+        table = self.relative_position_bias_table
+        if self.tp is not None:
+            x = tparallel.copy_to_model(x, self.tp)
+            table = tparallel.head_slice(table, self.tp, 1, H)
+            H //= self.tp.size
+        q, k, v = self.qkv(x).reshape(Bw, N, 3, H, D).permute(2, 0, 3, 1, 4)
         attn = (q * self.scale) @ k.transpose(-2, -1)
-        table = cast(self.relative_position_bias_table, x.dtype)
+        table = cast(table, x.dtype)
         bias = table[self.relative_position_index].reshape(N, N, H).permute(2, 0, 1)
         attn = attn + bias[None]
         if attn_mask is not None:
@@ -136,7 +160,10 @@ class WindowAttention(nn.Module):
             attn = (attn.reshape(Bw // nW, nW, H, N, N) + attn_mask[None, :, None]
                     ).reshape(Bw, H, N, N)
         attn = torch.softmax(at_least_f32(attn), dim=-1).to(x.dtype)
-        return self.proj((attn @ v).transpose(1, 2).reshape(Bw, N, C))
+        out = (attn @ v).transpose(1, 2).reshape(Bw, N, H * D)
+        if self.tp is not None:
+            return tparallel.row_linear(self.proj, out, self.tp)
+        return self.proj(out)
 
 
 class Mlp(nn.Module):
@@ -144,9 +171,13 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
+        self.tp = None
+
+    def tp_splits(self, size: int):
+        return tparallel.ffn_splits("fc1", "fc2", self.fc1.out_features, size)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return tparallel.ffn(x, self.fc1, self.fc2, F.gelu, self.tp)
 
 
 class SwinBlock(nn.Module):
@@ -187,14 +218,27 @@ class PatchMerging(nn.Module):
         super().__init__()
         self.norm = LayerNorm(4 * dim, eps=1e-5)
         self.reduction = Linear(4 * dim, 2 * dim, bias=False)
+        self.tp = None
+
+    def tp_splits(self, size: int):
+        n = self.reduction.in_features
+        return {"reduction.weight": tparallel.ROW} if size > 1 and n % size == 0 else {}
 
     def forward(self, x):
-        """(B, H, W, C) -> (B, ceil(H/2), ceil(W/2), 2C)."""
+        """(B, H, W, C) -> (B, ceil(H/2), ceil(W/2), 2C). Under tensor
+        parallelism (`tp`, see `parallel.tp`) `reduction` is row-parallel
+        over the rank's share of the 4C normalised features, read through
+        f (Megatron's scatter of a replicated input)."""
         H, W = x.shape[1:3]
         x = F.pad(x, (0, 0, 0, W % 2, 0, H % 2))
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
                        x[:, 1::2, 1::2]], -1)
-        return self.reduction(self.norm(x))
+        x = self.norm(x)
+        if self.tp is not None:
+            n = x.shape[-1] // self.tp.size
+            x = tparallel.copy_to_model(x, self.tp).narrow(-1, self.tp.rank * n, n)
+            return tparallel.row_linear(self.reduction, x, self.tp)
+        return self.reduction(x)
 
 
 class PatchEmbed(nn.Module):

@@ -18,12 +18,12 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from bm2f_tpu_torch.models.layers import LayerNorm, Linear, MultiHeadAttention
+from bm2f_tpu_torch.parallel import tp as tparallel
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(tparallel.ParallelFFN, nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  pre_norm: bool = False):
         super().__init__()
@@ -38,12 +38,12 @@ class TransformerEncoderLayer(nn.Module):
         if self.pre_norm:
             s = self.norm1(src)
             src = src + self.self_attn(s + pos, s + pos, s)
-            return src + self.linear2(F.relu(self.linear1(self.norm2(src))))
+            return src + self.ffn(self.norm2(src))
         src = self.norm1(src + self.self_attn(src + pos, src + pos, src))
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        return self.norm2(src + self.ffn(src))
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(tparallel.ParallelFFN, nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  pre_norm: bool = False):
         super().__init__()
@@ -62,10 +62,10 @@ class TransformerDecoderLayer(nn.Module):
             tgt = tgt + self.self_attn(t + query_pos, t + query_pos, t)
             t = self.norm2(tgt)
             tgt = tgt + self.multihead_attn(t + query_pos, memory + pos, memory)
-            return tgt + self.linear2(F.relu(self.linear1(self.norm3(tgt))))
+            return tgt + self.ffn(self.norm3(tgt))
         tgt = self.norm1(tgt + self.self_attn(tgt + query_pos, tgt + query_pos, tgt))
         tgt = self.norm2(tgt + self.multihead_attn(tgt + query_pos, memory + pos, memory))
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + self.ffn(tgt))
 
 
 class TransformerEncoder(nn.Module):

@@ -25,12 +25,12 @@ from typing import Dict, List, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from bm2f_tpu_torch.config import DecoderConfig
 from bm2f_tpu_torch.models.layers import MLP, Conv2d, LayerNorm, Linear, MultiHeadAttention, cast
 from bm2f_tpu_torch.models.position_encoding import sine_position_embedding_2d
 from bm2f_tpu_torch.ops import resize_bilinear
+from bm2f_tpu_torch.parallel import tp as tparallel
 
 NEG_INF = -1e9  # finite -inf surrogate: keeps softmax well-defined
 
@@ -67,7 +67,7 @@ class CrossAttentionLayer(nn.Module):
             tgt + query_pos, memory + pos, memory, attn_bias))
 
 
-class FFNLayer(nn.Module):
+class FFNLayer(tparallel.ParallelFFN, nn.Module):
     def __init__(self, d_model: int, dim_feedforward: int, pre_norm: bool = False):
         super().__init__()
         self.linear1 = Linear(d_model, dim_feedforward)
@@ -77,8 +77,8 @@ class FFNLayer(nn.Module):
 
     def forward(self, tgt):
         if self.pre_norm:
-            return tgt + self.linear2(F.relu(self.linear1(self.norm(tgt))))
-        return self.norm(tgt + self.linear2(F.relu(self.linear1(tgt))))
+            return tgt + self.ffn(self.norm(tgt))
+        return self.norm(tgt + self.ffn(tgt))
 
 
 class MultiScaleMaskedTransformerDecoder(nn.Module):

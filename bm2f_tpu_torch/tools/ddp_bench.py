@@ -1,6 +1,7 @@
-"""The data-parallel train step on the card: its losses against one card on
-the same global batch, its time against one card's step on a rank's share,
-the gradient all-reduce's share of the step, and peak memory per card.
+"""The data-parallel (and tensor-parallel) train step on the card: its
+losses against one card on the same global batch, its time against one
+card's step on a rank's share, the all-reduces' share of the step, and
+peak memory and state bytes per card.
 
     python -m torch.distributed.run --nproc-per-node 4 -m bm2f_tpu_torch.tools.ddp_bench \\
         --out chiprun_out/ddp_w4.json
@@ -24,6 +25,14 @@ on a rank's share (`--ims-per-batch` / `--share-of` images, the work of one
 card) for the time. `--compare` holds the runs' first step against the
 single run's within `REL` and says whether two multi-card runs are bitwise
 equal. Needs cards; exits non-zero without one.
+
+`--model T` lays the ranks out as the (data, model) mesh with model T
+(`parallel.init_mesh`; `mesh.model` of the config): each data rank trains
+`--ims-per-batch / (world / T)` images on its share of the wide
+parameters. The parameters' hash is then the gathered state's, equal on
+every rank, and `state_bytes` is the rank's parameters and AdamW moments.
+`--compare` also takes a multi-card run as its reference (the first
+file), so that runs at several meshes compare with each other.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import torch
 
 from bm2f_tpu_torch.config import get_config
 from bm2f_tpu_torch.parallel import init_distributed, local_rows, rank, world_size
+from bm2f_tpu_torch.parallel import tp as tparallel
 from bm2f_tpu_torch.tools.profile_request import perturb_deformable
 from bm2f_tpu_torch.train.trainer import Trainer, synthetic_batch
 
@@ -60,12 +70,24 @@ def smi() -> str:
     return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "not available"
 
 
-def params_sha(model) -> str:
+def params_sha(trainer: Trainer) -> str:
+    """The whole parameters' hash (gathered under tensor parallelism: every
+    rank of a model group calls it)."""
+    params = {n: p.detach() for n, p in trainer.model.named_parameters()}
+    if trainer.shard is not None:
+        params = tparallel.gather_state(params, trainer.splits, trainer.shard)
     h = hashlib.sha256()
-    for name, p in model.named_parameters():
+    for name, p in params.items():
         h.update(name.encode())
-        h.update(p.detach().cpu().numpy().tobytes())
+        h.update(p.cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def state_bytes(trainer: Trainer) -> int:
+    """This rank's parameters and both AdamW moments, in bytes."""
+    opt = trainer.optimizer
+    return sum(t.numel() * t.element_size() for ts in (opt.params, opt.mu, opt.nu)
+               for t in ts)
 
 
 def run_steps(trainer: Trainer, args, global_batch: int, share: int = 1) -> dict:
@@ -115,7 +137,8 @@ def run_steps(trainer: Trainer, args, global_batch: int, share: int = 1) -> dict
 
 
 def make_trainer(args, device) -> Trainer:
-    trainer = Trainer(get_config(args.config), device=device, seed=0)
+    trainer = Trainer(get_config(args.config, {"mesh.model": args.model}), device=device,
+                      seed=0)
     perturb_deformable(trainer.model)
     return trainer
 
@@ -124,7 +147,8 @@ def compare(single_path: str, *multi_paths: str) -> dict:
     """The multi-card runs' first step against the single run's on the
     global batch (raises beyond `REL`), and whether the multi-card runs are
     bitwise equal to each other (metrics and parameters)."""
-    single = json.loads(Path(single_path).read_text())["global"]["metrics"][0]
+    ref = json.loads(Path(single_path).read_text())
+    single = (ref["global"] if "global" in ref else ref)["metrics"][0]
     runs = [json.loads(Path(p).read_text()) for p in multi_paths]
     worst = {}
     for run in runs:
@@ -151,6 +175,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-steps", type=int, default=2)
     ap.add_argument("--single", action="store_true",
                     help="one process: the global batch, then a rank's share")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the mesh's model axis (tensor parallelism), mesh.model")
     ap.add_argument("--share-of", type=int, default=4,
                     help="--single: the world whose per-card share is timed")
     ap.add_argument("--compare", nargs="+", metavar="JSON",
@@ -179,20 +205,28 @@ def main(argv=None) -> int:
         dev = init_distributed("cuda")
         trainer = make_trainer(args, dev)
         got = run_steps(trainer, args, args.ims_per_batch)
-        sha = params_sha(trainer.model)
-        shas = [None] * world_size()
-        peaks = [None] * world_size()
+        sha = params_sha(trainer)
+        shas, peaks, nbytes = ([None] * world_size() for _ in range(3))
         torch.distributed.all_gather_object(shas, sha)
         torch.distributed.all_gather_object(peaks, got["peak_gib"])
+        torch.distributed.all_gather_object(nbytes, state_bytes(trainer))
         if len(set(shas)) != 1:
             raise AssertionError(f"the ranks' parameters differ: {shas}")
-        res = {"world": world_size(), "device": torch.cuda.get_device_name(dev),
-               "nvidia_smi": smi(), **got, "peak_gib_by_rank": peaks, "params_sha256": sha}
+        mesh = trainer.mesh
+        res = {"world": world_size(), "mesh": [mesh.data_size, mesh.model_size],
+               "config": args.config, "ims_per_batch": args.ims_per_batch,
+               "device": torch.cuda.get_device_name(dev),
+               "nvidia_smi": smi(), **got, "peak_gib_by_rank": peaks,
+               "state_bytes_by_rank": nbytes, "params_sha256": sha,
+               "images_per_s": args.ims_per_batch / got["step_ms_median"] * 1e3}
     if rank() == 0:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res))
         summary = res.get("global", res)
-        print(json.dumps({"world": res["world"], "step_ms": summary["step_ms"],
+        print(json.dumps({"world": res["world"], "mesh": res.get("mesh"),
+                          "step_ms": summary["step_ms"],
+                          "images_per_s": res.get("images_per_s"),
+                          "state_bytes": res.get("state_bytes_by_rank"),
                           "peak_gib": summary["peak_gib"],
                           "nccl_ms_per_step": summary["nccl_ms_per_step"],
                           "first_step": summary["metrics"][0].get("total_loss")}), flush=True)

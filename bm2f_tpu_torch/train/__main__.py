@@ -44,6 +44,20 @@ TensorBoard events and the checkpoints; the other ranks wait for each
 save. The evaluation (`--eval-dataset`, `--eval-only`) runs on every rank,
 each on its shard of the dataset, and gathers the evaluators.
 
+Tensor parallelism is the JAX package's `mesh.model` axis:
+
+    python -m torch.distributed.run --nproc-per-node 4 -m bm2f_tpu_torch.train \
+        --distributed --set mesh.model=2 ...
+
+lays the 4 ranks out as (data 2, model 2) (`parallel.init_mesh`, rank r at
+data r // 2, model r % 2): the batch and the loader's shard go by the data
+rank (`ims_per_batch // data` images a step, raising when the data size
+does not divide the batch or `mesh.model` the world), and the wide
+transformer parameters and their moments split over the model group
+(`parallel.tp`). The checkpoints hold the whole state, so a run resumes at
+any `mesh.model`; the evaluation runs on a whole model on the gathered
+weights.
+
 Video training is a `ytvis*` preset on a YouTube-VIS split (`data/ytvis.py`
 registers them under the same root): clips of `input.sampling_frame_num`
 frames through the `ytvis` mapper, or, when the sup_type holds the temporal
@@ -131,8 +145,11 @@ def train_loader(cfg, args, start: int):
             "ytvis_with_feats mapper is given no features root, as in the JAX "
             "train.py, so the temporal pairs come from ties")
     mapper = MAPPERS[name](cfg.input, seed=cfg.train.seed)
-    return build_train_loader(args.dataset, mapper, cfg.train.ims_per_batch // world_size(),
-                              seed=cfg.train.seed, rank=rank(), world_size=world_size())
+    # the data axis: rank r is data rank r // mesh.model (`parallel.init_mesh`)
+    model = cfg.mesh.model
+    data = world_size() // model
+    return build_train_loader(args.dataset, mapper, cfg.train.ims_per_batch // data,
+                              seed=cfg.train.seed, rank=rank() // model, world_size=data)
 
 
 def train(trainer: Trainer, args) -> int:
@@ -146,7 +163,7 @@ def train(trainer: Trainer, args) -> int:
     if start is not None:
         say(f"resumed from step {start} in {ckpt.directory}", flush=True)
     if args.eval_only:
-        res = dispatch_eval(cfg, trainer.model, args.eval_dataset or args.dataset)
+        res = dispatch_eval(cfg, trainer.eval_model(), args.eval_dataset or args.dataset)
         say("eval " + json.dumps({"iteration": trainer.step_count,
                                   **{f"eval/{k}": float(v) for k, v in res.items()}}),
             flush=True)
@@ -224,9 +241,13 @@ def main(argv=None) -> int:
     try:
         global_batch = (args.batch if args.synthetic or not looped
                         else cfg.train.ims_per_batch)
-        if global_batch % world_size():
+        # the data axis's ranks; the trainer raises when mesh.model does not
+        # divide the world
+        world, model = world_size(), cfg.mesh.model
+        if world % model == 0 and global_batch % (world // model):
+            of = f" of the data axis (world {world}, mesh.model {model})" if model > 1 else ""
             raise ValueError(f"a global batch of {global_batch} images does not divide "
-                             f"over {world_size()} ranks")
+                             f"over {world // model} ranks{of}")
         trainer = Trainer(cfg, device=device, seed=args.seed)
         if looped:
             train(trainer, args)

@@ -10,8 +10,10 @@ A directory of weights only (`save_state` of {"step", "model"}, as
 Under data parallelism (`parallel/`) every rank holds the same state: rank
 0 writes, and every rank waits at a barrier after each save, so that no
 rank reads or lists a step before it is complete; every rank reads the
-same step after a barrier. The JAX package's orbax manager writes from
-every process into one directory.
+same step after a barrier. Under tensor parallelism the state written is
+the whole one (`Trainer.state_dict` gathers the shares) and a rank cuts its
+shares on loading, so that one file resumes at any mesh. The JAX package's
+orbax manager writes from every process into one directory.
 """
 
 from __future__ import annotations
@@ -50,7 +52,10 @@ class Checkpointer:
         `force`, which replaces it (the end of a run saves with force).
         Rank 0 writes and every rank waits for it. Returns whether this
         rank wrote."""
-        wrote = rank() == 0 and self.save_state(step, trainer.state_dict(), force)
+        # under tensor parallelism every rank takes part in the gather
+        state = (trainer.state_dict() if rank() == 0 or trainer.shard is not None
+                 else None)
+        wrote = rank() == 0 and self.save_state(step, state, force)
         barrier()
         return wrote
 

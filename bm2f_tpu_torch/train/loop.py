@@ -21,8 +21,11 @@ Under data parallelism (`parallel/`) every rank runs this loop on its rows
 of the global batch: the trainer's metrics are already the global ones,
 the writers write on rank 0 only (`utils/events.py`), `ckpt.save` writes on
 rank 0 while the others wait, and the evaluation runs on every rank on the
-unwrapped model, each on its shard of the dataset, and gathers the
-evaluators (`eval.run_eval` takes the rank and world from the group).
+unwrapped model (a whole one on the gathered weights under tensor
+parallelism, `Trainer.eval_model`), each on its shard of the dataset, and
+gathers the evaluators (`eval.run_eval` takes the rank and world from the
+group). The synthetic batches and the loader's shard go by the data rank:
+the ranks of a model group train the same rows.
 """
 
 from __future__ import annotations
@@ -171,7 +174,7 @@ def run_train_loop(cfg, trainer, loader: Iterator[Mapping[str, object]],
         if do_ckpt:
             ckpt.save(it, trainer)
         if do_eval:
-            res = dispatch_eval(cfg, trainer.model, eval_dataset)
+            res = dispatch_eval(cfg, trainer.eval_model(), eval_dataset)
             storage.put_scalars(it, **{f"eval/{k}": float(v) for k, v in res.items()})
             for w in writers:
                 w.write(storage, force=True)

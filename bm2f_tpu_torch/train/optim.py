@@ -16,7 +16,9 @@ semantics (bm2f_tpu/train/optim.py, an optax chain):
   `level_embed` and Swin's `relative_position_bias_table` and
   `absolute_pos_embed` parameters;
 - WarmupMultiStep or WarmupPoly LR schedule, as a function of the number of
-  updates made before this one.
+  updates made before this one;
+- under tensor parallelism, the global norm of the logical gradient over
+  the rank's shares (`AdamW`).
 
 The update runs on lists of tensors (`torch._foreach_*`), a handful of
 launches for the whole model.
@@ -24,9 +26,10 @@ launches for the whole model.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, NamedTuple
+from typing import Callable, Collection, Dict, List, Mapping, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from bm2f_tpu_torch.config import OptimizerConfig
@@ -84,15 +87,25 @@ class AdamW:
     """The optimizer over `param_groups(model, cfg)`. `step()` reads each
     parameter's `.grad` (a missing one counts as zeros), updates the
     parameters in place and returns the global gradient norm before
-    clipping, as a 0-d tensor on the parameters' device."""
+    clipping, as a 0-d tensor on the parameters' device.
 
-    def __init__(self, model: nn.Module, cfg: OptimizerConfig):
+    Under tensor parallelism the parameters named in `sharded` are this
+    rank's shares of tensors split over `model_group`: the norm is then
+    optax's `global_norm` of the whole (logical) tensors, each share's sum
+    of squares summed over the group and each replicated parameter counted
+    once, so that every rank clips by the same factor; the clip and the
+    update act on the shares as they are."""
+
+    def __init__(self, model: nn.Module, cfg: OptimizerConfig,
+                 sharded: Collection[str] = (), model_group=None):
         if cfg.name != "adamw":
             raise NotImplementedError(f"optimizer {cfg.name!r}: only adamw")
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
         self.groups = param_groups(model, cfg)
         self.params = [g.param for g in self.groups]
+        self.sharded = [g.name in sharded for g in self.groups]
+        self.model_group = model_group
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0  # updates made so far
@@ -131,9 +144,12 @@ class AdamW:
                  for p in self.params]
         # sqrt of the sum of squares, as optax.global_norm (torch's f32
         # vector_norm on the CPU is off by ~1e-5 relative for small values)
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        g_norm = flat.square().sum().sqrt()
-        del flat
+        if any(self.sharded):
+            g_norm = self._sharded_sq_sum(grads).sqrt()
+        else:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            g_norm = flat.square().sum().sqrt()
+            del flat
         # optax clip_by_global_norm: (g / |g|) * max where |g| >= max, else g
         clip = g_norm >= cfg.clip_gradients
         grads = torch._foreach_mul(
@@ -156,3 +172,14 @@ class AdamW:
         torch._foreach_mul_(updates, [g.lr_mult for g in self.groups])
         torch._foreach_add_(self.params, updates, alpha=-self.schedule(self.count - 1))
         return g_norm
+
+    def _sharded_sq_sum(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The whole gradient's sum of squares: the shares' summed over the
+        model group, the replicated parameters' once."""
+        def sq(keep):
+            return torch.cat([g.reshape(-1) for g, s in zip(grads, self.sharded)
+                              if s == keep]).square().sum()
+
+        shares = sq(True)
+        dist.all_reduce(shares, group=self.model_group)
+        return sq(False) + shares

@@ -50,10 +50,23 @@ rank's own (the counterpart of `make_sharded_assign_fn`): the criterion
 hands `assign_fn` only this rank's costs. The AdamW groups are built from
 the unwrapped model, and `state_dict()` is the unwrapped model's, so a
 checkpoint written at one world size resumes at another.
+
+Tensor parallelism (`cfg.mesh.model` T > 1, `parallel.tp`): the ranks form
+JAX's (data, model) grid (`parallel.init_mesh`), the batch is sharded over
+the data axis only, and the model, built whole from the seed, is cut to the
+rank's shares of the wide transformer parameters (`tp.shard_model_`), as
+the JAX step places its state with `state_shardings`
+(bm2f_tpu/train/trainer.py:223-241). DDP and the summed losses run over the
+data group; `grad_norm` sums the shares' squares over the model group
+(`AdamW`). `state_dict()` gathers the full tensors of the parameters and of
+both moments and `load_state_dict` cuts them, so that a checkpoint is the
+same file whatever T is; `eval_model()` is a whole model on the gathered
+weights, as JAX evaluates `device_get(state.params)`.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from typing import Callable, Dict, Mapping, Optional, Tuple
@@ -75,7 +88,8 @@ from bm2f_tpu_torch.losses.weaksup_criterion import weaksup_set_criterion
 from bm2f_tpu_torch.losses.weaksup_video import video_weaksup_set_criterion
 from bm2f_tpu_torch.matching.hungarian import make_assign_fn
 from bm2f_tpu_torch.models.maskformer import build_model, normalize_images
-from bm2f_tpu_torch.parallel import check_mesh, global_sum
+from bm2f_tpu_torch.parallel import global_sum, init_mesh
+from bm2f_tpu_torch.parallel import tp as tparallel
 from bm2f_tpu_torch.video import build_video_model
 from bm2f_tpu_torch.train.optim import AdamW
 from bm2f_tpu_torch.utils.precision import deterministic_scope, f32_scope
@@ -173,21 +187,30 @@ class Trainer:
 
     def __init__(self, cfg: Config, device="cuda", seed: int = 0):
         _check_trainable(cfg)
-        check_mesh(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.video = cfg.task == "video"
-        build = build_video_model if self.video else build_model
-        self.model = build(cfg, device=self.device, seed=seed).train()
+        self.seed = seed
+        self.mesh = init_mesh(cfg.mesh.model, cfg.mesh.data)
+        self.model = self._build().train()
+        # this rank's share of the model group, and what it splits
+        self.shard, self.splits = None, {}
+        if self.mesh.model_size > 1:
+            self.shard = tparallel.ModelShard(self.mesh.model_rank, self.mesh.model_size,
+                                              self.mesh.model_group)
+            self.splits = tparallel.shard_model_(self.model, self.shard)
         # the module the step calls: DDP's wrapper in a process group
         self.forward = self.model
         if dist.is_available() and dist.is_initialized():
             # device_ids None: the module is on one device, its inputs too
-            self.forward = DistributedDataParallel(self.model, broadcast_buffers=False)
-            self.forward.register_comm_hook(None, sum_gradients)
+            group = self.mesh.data_group
+            self.forward = DistributedDataParallel(self.model, broadcast_buffers=False,
+                                                   process_group=group)
+            self.forward.register_comm_hook(group, sum_gradients)
         self.ccfg = criterion_config(cfg)
         self.assign_fn = make_assign_fn(cfg)
-        self.optimizer = AdamW(self.model, cfg.train.optimizer)
+        self.optimizer = AdamW(self.model, cfg.train.optimizer, sharded=self.splits,
+                               model_group=self.mesh.model_group)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         log.info("training without rematerialisation: each deformable "
                  "encoder layer saves only its inputs for K2")
@@ -197,23 +220,51 @@ class Trainer:
         """Steps taken (the JAX `TrainState.step`)."""
         return self.optimizer.count
 
+    def _build(self):
+        build = build_video_model if self.video else build_model
+        return build(self.cfg, device=self.device, seed=self.seed)
+
     def state_dict(self) -> Dict[str, object]:
         """What the JAX `TrainState` holds: the step, the parameters and the
         FrozenBN buffers (the model's `state_dict`), the AdamW moments and
-        count, and the criterion generator's state (JAX's `rng`)."""
-        return {"step": self.step_count, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+        count, and the criterion generator's state (JAX's `rng`). Under
+        tensor parallelism the parameters and moments are gathered whole
+        (every rank of the model group calls it)."""
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.shard is not None:
+            model = tparallel.gather_state(model, self.splits, self.shard)
+            for key in ("mu", "nu"):
+                opt[key] = tparallel.gather_state(opt[key], self.splits, self.shard)
+        return {"step": self.step_count, "model": model, "optimizer": opt,
                 "generator": self.generator.get_state()}
 
     def load_state_dict(self, state: Mapping[str, object]) -> None:
-        """Restores `state_dict()` bit for bit; raises on a missing or an
-        extra key or a step that disagrees with the optimizer's count."""
+        """Restores `state_dict()` bit for bit, cut to this rank's shares
+        under tensor parallelism; raises on a missing or an extra key or a
+        step that disagrees with the optimizer's count."""
         if int(state["step"]) != int(state["optimizer"]["count"]):
             raise ValueError(f"step {state['step']} but the optimizer has made "
                              f"{state['optimizer']['count']} updates")
-        self.model.load_state_dict(state["model"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
+        model, opt = state["model"], dict(state["optimizer"])
+        if self.shard is not None:
+            cut = functools.partial(tparallel.shard_state, splits=self.splits,
+                                    rank=self.shard.rank, size=self.shard.size)
+            model = cut(model)
+            opt.update(mu=cut(opt["mu"]), nu=cut(opt["nu"]))
+        self.model.load_state_dict(model, strict=True)
+        self.optimizer.load_state_dict(opt)
         self.generator.set_state(state["generator"])
+
+    def eval_model(self) -> torch.nn.Module:
+        """The model to evaluate: `self.model`; under tensor parallelism a
+        whole model on the gathered weights (every rank of the model group
+        calls it), as the JAX loop evaluates `device_get(state.params)`."""
+        if self.shard is None:
+            return self.model
+        weights = tparallel.gather_state(self.model.state_dict(), self.splits, self.shard)
+        model = self._build()
+        model.load_state_dict(weights, strict=True)
+        return model
 
     def loss(self, batch: Mapping[str, torch.Tensor],
              points: Optional[Mapping[str, torch.Tensor]] = None,

@@ -202,6 +202,22 @@ Phases, each printing its own line:
   G3. phase 26's run as the one rank of `python -m torch.distributed.run
      --nproc-per-node 1 -m bm2f_tpu_torch.train --distributed` (NCCL):
      trains with an eval and checkpoints, then `--eval-only --resume`;
+  T1-T3. tensor parallelism (`bm2f_tpu_torch/parallel/tp.py`), after G2:
+  T1. K1 and K2 at a rank's share of the deformable heads, M/T = 4 and 2
+     (D = 32), at the train shapes (B=2, 1024x1024): each against its plain
+     version, K2 twice and once with its tiles reversed (all three bitwise
+     equal), both timed beside the plain versions and the bound at M/T;
+  T2. two spawned processes on the one card in a gloo group at mesh (data
+     1, model 2), each training the whole global B=2 batch on its share of
+     the wide parameters, 2 steps, against one process: the first step's
+     losses and grad_norm within G2_REL, its update within AdamW's bound,
+     the replicated parameters bitwise equal across the ranks after every
+     step, K1 and K2 6 launches a step on each rank, on 4 heads, each
+     rank's parameter and moment bytes the rules' count; step time and peak
+     memory per rank;
+  T3. T2's checkpoint (the gathered state, written by rank 0) resumed by
+     one process: its state bitwise the file's; its next step against the
+     ranks' within G2_REL (losses) and RESUME_GRAD_NORM_RTOL (grad_norm);
   A-F. the user entry points and the MaskFormer-v1 models, each where its
      data lives (B, D and E after 26 on phase 19's split, C after 37 on
      phase 27's, A and F after the video phases), every count set to 0
@@ -416,6 +432,17 @@ DDP_STEPS, G2_STEPS = 3, 2
 # gradient norm between world sizes, tests/torch_ddp_cases.py, held at 1e-4
 # there and here)
 G2_REL = 1e-4
+# the tensor-parallel phases (T1-T3): a rank's share of the deformable
+# heads at T = 2 and 4; two ranks at mesh (data 1, model 2) on the one card
+# (gloo), each the whole global B=2 batch, 2 steps, then a checkpoint and a
+# third step. T2 against one process is G2's comparison (the sums of f32
+# terms in another order: a row-parallel layer sums two partial products,
+# f sums two partial gradients), held at G2_REL. T3 resumes T2's
+# checkpoint in one process: the state bitwise, and its next step against
+# T2's within G2_REL (phase 18's RESUME_LOSS_RTOL holds a resume of the
+# same computation; this one resumes at another mesh, whose sums run in
+# another order) and grad_norm within RESUME_GRAD_NORM_RTOL
+TP_MODEL, T2_STEPS = 2, 2
 
 
 def log(phase: str, **fields) -> None:
@@ -481,9 +508,10 @@ def bound_ms(n_bytes: int, flops: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def deform_bound_ms(B, shapes, Q, L, loc, value_bytes=4):
+def deform_bound_ms(B, shapes, Q, L, loc, value_bytes=4, M=M):
     """K1: reads value (`value_bytes` an element), loc, attn once and writes
-    the f32 output once; one FMA per valid corner and channel."""
+    the f32 output once; one FMA per valid corner and channel. `M` heads
+    (a rank's share under tensor parallelism)."""
     S = sum(h * w for h, w in shapes)
     n_bytes = (value_bytes * B * S * M * D
                + 4 * (B * Q * M * L * P * 2 + B * Q * M * L * P + B * Q * M * D))
@@ -491,11 +519,11 @@ def deform_bound_ms(B, shapes, Q, L, loc, value_bytes=4):
     return (*bound_ms(n_bytes, flops), n_bytes, flops)
 
 
-def deform_bwd_bound_ms(B, shapes, Q, L, loc, value_bytes=4):
+def deform_bwd_bound_ms(B, shapes, Q, L, loc, value_bytes=4, M=M):
     """K2: reads value, loc, attn and grad_out once and writes d_value,
     d_loc and d_attn once (value and d_value `value_bytes` an element, the
     rest f32); per valid corner and channel one FMA for the dot product and
-    a multiply and an add into d_value."""
+    a multiply and an add into d_value. `M` heads."""
     S = sum(h * w for h, w in shapes)
     n_bytes = value_bytes * 2 * B * S * M * D \
         + 4 * 2 * (B * Q * M * L * P * 2 + B * Q * M * L * P) + 4 * B * Q * M * D
@@ -699,14 +727,15 @@ def stage_split(pred, image, path: str):
     return x
 
 
-def make_trainer(dev):
+def make_trainer(dev, over=None):
     """The full-width trainer at its seeded init, with the deformable
-    projections perturbed (general sampling locations, not a grid)."""
+    projections perturbed (general sampling locations, not a grid);
+    `over`: config overrides."""
     from bm2f_tpu_torch.config import get_config
     from bm2f_tpu_torch.tools.profile_request import perturb_deformable
     from bm2f_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(get_config(CONFIG), device=dev, seed=0)
+    trainer = Trainer(get_config(CONFIG, over or {}), device=dev, seed=0)
     perturb_deformable(trainer.model)
     return trainer
 
@@ -1580,6 +1609,255 @@ def ddp_two_ranks_gloo(dev):
     for g in (r0, r1):
         if tuple(g["launches"]) != (n_layers * G2_STEPS,) * 2:
             raise AssertionError(f"G2: K1, K2 launched {g['launches']} on a rank")
+    return tuple(a + b for a, b in zip(r0["launches"], r1["launches"]))
+
+
+def tp_kernels(dev, gen):
+    """Phase T1: K1 and K2 at a rank's share of the deformable heads (M/T =
+    4 and 2, D = 32) at the train shapes (B=2, 1024x1024): each against its
+    plain version, K2 run as `k2_runs_bitwise` runs it, both timed beside
+    the plain versions and their bounds (which scale with M). Returns
+    {heads: {"fwd": row, "bwd": row}}."""
+    from bm2f_tpu_torch.ops.deform_attn import (
+        ms_deform_attn_bwd_cuda,
+        ms_deform_attn_bwd_plain,
+        ms_deform_attn_cuda,
+        ms_deform_attn_plain,
+    )
+
+    B, shapes, L = TRAIN_BATCH, TRAIN_SHAPES, len(TRAIN_SHAPES)
+    S = sum(h * w for h, w in shapes)
+    v8, loc8, attn8 = deform_inputs(B, shapes, S, gen, dev)
+    g8 = torch.randn(B, S, M, D, generator=gen).to(dev)
+    rows = {}
+    for T in (2, 4):
+        heads = M // T
+        v, loc, attn, g = (t[:, :, :heads].contiguous() for t in (v8, loc8, attn8, g8))
+        g = g.reshape(B, S, heads * D)
+        out = ms_deform_attn_cuda(v, shapes, loc, attn)
+        torch.cuda.synchronize()
+        f_err = (out - ms_deform_attn_plain(v, shapes, loc, attn)).abs().max().item()
+        if not f_err <= 1e-4:
+            raise AssertionError(f"T1: K1 at M={heads}: max abs err {f_err} > 1e-4")
+        first = k2_runs_bitwise(v, shapes, loc, attn, g)
+        want = ms_deform_attn_bwd_plain(v, shapes, loc, attn, g)
+        errs = {}
+        for name, a, w in zip(GRAD_TOL, first, want):
+            torch.testing.assert_close(a, w, msg=f"T1 M={heads} {name}", **GRAD_TOL[name])
+            errs[name] = (a - w).abs().max().item()
+        del first, want, out
+        f_ms = cuda_ms(lambda: ms_deform_attn_cuda(v, shapes, loc, attn), 20)
+        fp_ms = cuda_ms(lambda: ms_deform_attn_plain(v, shapes, loc, attn), 3)
+        b_ms = cuda_ms(lambda: ms_deform_attn_bwd_cuda(v, shapes, loc, attn, g), 20)
+        bp_ms = cuda_ms(lambda: ms_deform_attn_bwd_plain(v, shapes, loc, attn, g), 3)
+        f_bound, f_by, _, _ = deform_bound_ms(B, shapes, S, L, loc, M=heads)
+        b_bound, b_by, _, _ = deform_bwd_bound_ms(B, shapes, S, L, loc, M=heads)
+        rows[heads] = {
+            "fwd": {"M": heads, "T": T, "max_abs_err": f_err, "ms": f_ms, "plain_ms": fp_ms,
+                    "bound_ms": f_bound, "bound_by": f_by},
+            "bwd": {"M": heads, "T": T, "max_abs_err": max(errs.values()), "ms": b_ms,
+                    "plain_ms": bp_ms, "bound_ms": b_bound, "bound_by": b_by}}
+        log("tp_kernels", M=heads, T=T, B=B, Q=S, fwd_max_abs_err=f"{f_err:.3e}",
+            **{f"bwd_{k}_max_abs_err": f"{e:.3e}" for k, e in errs.items()},
+            fwd_ms=f"{f_ms:.4f}", fwd_plain_ms=f"{fp_ms:.4f}", fwd_bound_ms=f"{f_bound:.4f}",
+            bwd_ms=f"{b_ms:.4f}", bwd_plain_ms=f"{bp_ms:.4f}", bwd_bound_ms=f"{b_bound:.4f}",
+            k2_bitwise_runs=3)
+        del v, loc, attn, g
+    del v8, loc8, attn8, g8
+    return rows
+
+
+def t2_rank(rank: int, port: int, out_dir: str, device: str, queue) -> None:
+    """One of phase T2's two ranks, a spawned process on the card: a gloo
+    group started here, a trainer at mesh (data 1, model 2), so that each
+    rank trains the whole global batch on its share of the wide parameters,
+    T2_STEPS steps with K1's and K2's head counts recorded, the replicated
+    parameters compared with rank 0's after each step; then a checkpoint
+    (written by rank 0, the gathered state) and one more step."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, str(ROOT))
+        from bm2f_tpu_torch.ops import deform_attn
+        from bm2f_tpu_torch.parallel import tp as tparallel
+        from bm2f_tpu_torch.train.checkpoint import Checkpointer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=TP_MODEL)
+        trainer = make_trainer(dev, {"mesh.model": TP_MODEL})
+        batches = ddp_batches(dev, T2_STEPS + 1)
+        heads = {"fwd": [], "bwd": []}
+        watch = [_watch(deform_attn, "ms_deform_attn_cuda", heads["fwd"],
+                        lambda a, o: a[0].shape[2]),
+                 _watch(deform_attn, "ms_deform_attn_bwd_cuda", heads["bwd"],
+                        lambda a, o: a[0].shape[2])]
+        metrics, equal, step_ms = [], [], []
+        with watch[0], watch[1]:
+            k1, k2 = deform_attn.ms_deform_attn_cuda, deform_attn.ms_deform_attn_bwd_cuda
+            k1.launches = k2.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            for i, b in enumerate(batches[:T2_STEPS]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics.append({k: v.item() for k, v in trainer.step(b).items()})
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                rep = torch.cat([p.detach().reshape(-1) for n, p
+                                 in trainer.model.named_parameters() if n not in trainer.splits])
+                other = rep.clone()
+                dist.broadcast(other, src=0)
+                equal.append(torch.equal(rep, other))
+                if i == 0:
+                    whole = tparallel.gather_state(
+                        {n: p.detach() for n, p in trainer.model.named_parameters()},
+                        trainer.splits, trainer.shard)
+                    if rank == 0:
+                        torch.save({n: t.cpu() for n, t in whole.items()},
+                                   Path(out_dir) / "t2_step1.pt")
+                    del whole
+            launches = (k1.launches, k2.launches)
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        nbytes = {"params": sum(p.numel() * p.element_size()
+                                for p in trainer.optimizer.params),
+                  "mu": sum(t.numel() * t.element_size() for t in trainer.optimizer.mu),
+                  "nu": sum(t.numel() * t.element_size() for t in trainer.optimizer.nu)}
+        Checkpointer(Path(out_dir) / "ckpt").save(trainer.step_count, trainer)
+        after = {k: v.item() for k, v in trainer.step(batches[T2_STEPS]).items()}
+        queue.put((rank, {"metrics": metrics, "equal_to_rank0": equal, "step_ms": step_ms,
+                          "launches": launches, "heads": {k: sorted(set(v))
+                                                          for k, v in heads.items()},
+                          "bytes": nbytes, "peak_gib": peak, "after": after}))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_two_ranks_gloo(dev):
+    """Phases T2 and T3: two processes on the one card in a gloo group at
+    mesh (data 1, model 2) against one process on the same global B=2
+    batches and random points (both draw the global batch's from seed 0):
+    the first step's losses and grad_norm within G2_REL, its update within
+    `adam_update_bound`, the replicated parameters bitwise equal across the
+    ranks after every step, K1 and K2 6 launches a step on each rank, all
+    on M/2 heads, each rank's parameter and moment bytes the rules' count.
+    T3: the ranks' checkpoint resumed by one process, its state bitwise the
+    file's, and its next step against the ranks' within G2_REL (losses)
+    and RESUME_GRAD_NORM_RTOL (grad_norm). Returns the two ranks' K1 and K2
+    launches summed."""
+    import multiprocessing as mp
+
+    from bm2f_tpu_torch.parallel import tp as tparallel
+    from bm2f_tpu_torch.train.checkpoint import STATE_FILE, Checkpointer
+
+    plain = make_trainer(dev)
+    n_shard, shard_bytes, total_bytes = tparallel.count_sharded(plain.model, TP_MODEL)
+    want_bytes = total_bytes - shard_bytes * (TP_MODEL - 1) // TP_MODEL
+    batches = ddp_batches(dev, T2_STEPS + 1)
+    want, plain_ms = _steps(plain, batches[:1])
+    ref = {n: p.detach().cpu().clone() for n, p in plain.model.named_parameters()}
+    grads = {n: p.grad.detach().cpu().double() for n, p in plain.model.named_parameters()}
+    lr = plain.optimizer.schedule(0)
+    mults = {g.name: g.lr_mult for g in plain.optimizer.groups}
+    clip_max = plain.optimizer.cfg.clip_gradients
+    del plain
+    torch.cuda.empty_cache()
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_t2_", dir=ROOT / "output")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    t0 = time.perf_counter()
+    device = "cuda:0" if dev.type == "cuda" else str(dev)
+    procs = [ctx.Process(target=t2_rank, args=(r, port, out_dir, device, queue))
+             for r in range(TP_MODEL)]
+    for proc in procs:
+        proc.start()
+    try:
+        got = dict(queue.get(timeout=900) for _ in procs)
+        for r in got:
+            if isinstance(got[r], str):
+                raise AssertionError(f"T2 rank {r} failed:\n{got[r]}")
+        wall_s = time.perf_counter() - t0
+        got1 = torch.load(Path(out_dir) / "t2_step1.pt", weights_only=True)
+        # -- T3: the checkpoint resumed by one process
+        ckpt = Checkpointer(Path(out_dir) / "ckpt")
+        saved = torch.load(ckpt.directory / str(ckpt.latest_step()) / STATE_FILE,
+                           map_location=dev, weights_only=True)
+        saved["generator"] = saved["generator"].cpu()
+        fresh = make_trainer(dev)
+        step = ckpt.resume_or_load(fresh, resume=True)
+        bad = _same_state(fresh.state_dict(), saved)
+        del saved
+        resumed = {k: v.item() for k, v in fresh.step(batches[T2_STEPS]).items()}
+        del fresh
+    finally:
+        for proc in procs:
+            proc.join(timeout=120)
+            if proc.is_alive():
+                proc.kill()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    r0, r1 = got[0], got[1]
+    rels = {k: abs(r0["metrics"][0][k] - w) / max(abs(w), 1e-12) for k, w in want[0].items()}
+    worst_key = max(rels, key=rels.get)
+    norm = torch.sqrt(sum((g ** 2).sum() for g in grads.values()))
+    clip = clip_max / norm if norm >= clip_max else 1.0
+    excess = {}
+    for n, w in ref.items():
+        o = got1[n]
+        ulp = torch.from_numpy(np.spacing(np.maximum(w.abs().numpy(), o.abs().numpy())))
+        bound = adam_update_bound(grads[n] * clip, lr * mults[n], G2_REL, ulp.double())
+        excess[n] = ((o.double() - w.double()).abs() / bound).max().item()
+    worst = max(excess, key=excess.get)
+    after = r0["after"]
+    t3_loss = max(abs(resumed[k] - after[k]) / max(abs(after[k]), 1e-12)
+                  for k in after if k != "grad_norm")
+    t3_norm = abs(resumed["grad_norm"] - after["grad_norm"]) / after["grad_norm"]
+    from bm2f_tpu_torch.config import get_config
+
+    n_layers = get_config(CONFIG).model.pixel_decoder.transformer_enc_layers
+    log("tp_two_ranks_gloo", mesh=f"(1,{TP_MODEL})", steps=T2_STEPS, wall_s=f"{wall_s:.2f}",
+        step_ms=",".join(f"{v:.2f}" for v in r0["step_ms"]),
+        step_ms_rank1=",".join(f"{v:.2f}" for v in r1["step_ms"]),
+        plain_step_ms=",".join(f"{v:.2f}" for v in plain_ms),
+        max_rel=f"{worst_key}:{rels[worst_key]:.3e}",
+        worst_update_excess=f"{excess[worst]:.3e}", worst_param=worst,
+        replicated_bitwise=r0["equal_to_rank0"] + r1["equal_to_rank0"],
+        launches=[r0["launches"], r1["launches"]], heads=[r0["heads"], r1["heads"]],
+        sharded_leaves=n_shard, param_bytes_by_rank=[g["bytes"]["params"] for g in (r0, r1)],
+        param_bytes_rule=want_bytes, replicated_param_bytes=total_bytes,
+        peak_gib=",".join(f"{g['peak_gib']:.2f}" for g in (r0, r1)),
+        total_loss=",".join(f"{m['total_loss']:.6f}" for m in r0["metrics"]))
+    log("tp_resume_one_process", step=step, differing_state=len(bad),
+        next_total_loss=f"{resumed['total_loss']:.6f}", max_loss_rel=f"{t3_loss:.3e}",
+        grad_norm_rel=f"{t3_norm:.3e}")
+    if r0["metrics"] != r1["metrics"] or not all(r0["equal_to_rank0"] + r1["equal_to_rank0"]):
+        raise AssertionError("T2: the ranks' metrics or replicated parameters differ")
+    if not (rels[worst_key] <= G2_REL and excess[worst] <= 1.0):
+        raise AssertionError(f"T2 against one process: losses {rels[worst_key]:.3e} (limit "
+                             f"{G2_REL}), update {worst} {excess[worst]:.3e} of its bound")
+    for g in (r0, r1):
+        if tuple(g["launches"]) != (n_layers * T2_STEPS,) * 2:
+            raise AssertionError(f"T2: K1, K2 launched {g['launches']} on a rank")
+        if g["heads"] != {"fwd": [M // TP_MODEL], "bwd": [M // TP_MODEL]}:
+            raise AssertionError(f"T2: the kernels ran on {g['heads']} heads")
+        if any(v != want_bytes for v in g["bytes"].values()):
+            raise AssertionError(f"T2: a rank holds {g['bytes']} bytes, the rules "
+                                 f"{want_bytes} each")
+    if step != T2_STEPS or bad:
+        raise AssertionError(f"T3: resumed at {step}; differing from the file: {bad[:8]}")
+    if not (t3_loss <= G2_REL and t3_norm <= RESUME_GRAD_NORM_RTOL):
+        raise AssertionError(f"T3: the resumed step against the ranks': losses {t3_loss:.3e} "
+                             f"(limit {G2_REL}), grad_norm {t3_norm:.3e} (limit "
+                             f"{RESUME_GRAD_NORM_RTOL})")
     return tuple(a + b for a, b in zip(r0["launches"], r1["launches"]))
 
 
@@ -3284,6 +3562,13 @@ def main() -> int:
     k_ddp2 = ddp_two_ranks_gloo(dev)
     torch.cuda.empty_cache()
 
+    # -- T1. K1 and K2 at a rank's share of the heads -----------------------------------
+    tp_rows = tp_kernels(dev, gen)
+    torch.cuda.empty_cache()
+
+    # -- T2, T3. two tensor-parallel ranks on the one card; the checkpoint resumed ------
+    k_tp = tp_two_ranks_gloo(dev)
+
     # -- 19. the eval's data ------------------------------------------------------------
     data_root, _ = write_eval_dataset(ROOT / "output")
     try:
@@ -3418,10 +3703,12 @@ def main() -> int:
         "launches": (launches + k1_train + k1_pd_f32 + k1_eval + k1_weak + k1_mask_wo_lsj
                      + k1_video_eval + k_video["mask"][0] + k_video["weak"][0]
                      + k1_swin_serve + k1_swin_train + k1_swin_video + k1_predictor
-                     + k1_demo + k1_demo_video + k1_tta + k1_oom + k_ddp1[0] + k_ddp2[0]),
+                     + k1_demo + k1_demo_video + k1_tta + k1_oom + k_ddp1[0] + k_ddp2[0]
+                     + k_tp[0]),
         "launches_by_path": {"serve": launches, "train": k1_train, "train_weak": k1_weak,
                              "train_ddp_world1_nccl": k_ddp1[0],
                              "train_ddp_two_ranks_gloo": k_ddp2[0],
+                             "train_tp_two_ranks_gloo_m4": k_tp[0],
                              "train_wo_lsj": k1_mask_wo_lsj,
                              "serve_bf16_pixel_decoder_f32": k1_pd_f32,
                              **{f"eval_{r}": n for r, (n, _) in eval_launches.items() if n},
@@ -3435,6 +3722,7 @@ def main() -> int:
         "eval_buckets": {str(b): row for (b, dt), row in k1_buckets.items() if dt == "f32"},
         "video_buckets": {f"Tp{tp}_S{row['S']}": row for tp, row in k1_video_rows.items()},
         "swin_l": {"serve_800x800": k1_swin_serve_row, "video": k1_swin_video_row},
+        "tp_heads": {f"M{m}": r["fwd"] for m, r in tp_rows.items()},
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -3447,15 +3735,18 @@ def main() -> int:
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_bwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:118",
         "launches": (k2_train + k2_weak + k2_mask_wo_lsj + k_video["mask"][1]
-                     + k_video["weak"][1] + k2_swin_train + k_ddp1[1] + k_ddp2[1]),
+                     + k_video["weak"][1] + k2_swin_train + k_ddp1[1] + k_ddp2[1]
+                     + k_tp[1]),
         "launches_by_path": {"serve": k2_serve, "train": k2_train, "train_weak": k2_weak,
                              "train_ddp_world1_nccl": k_ddp1[1],
                              "train_ddp_two_ranks_gloo": k_ddp2[1],
+                             "train_tp_two_ranks_gloo_m4": k_tp[1],
                              "train_wo_lsj": k2_mask_wo_lsj, "train_bf16": 0,
                              "train_video": k_video["mask"][1],
                              "train_video_weak": k_video["weak"][1],
                              "train_swin_l": k2_swin_train},
         "video_train": k2_video_row,
+        "tp_heads": {f"M{m}": r["bwd"] for m, r in tp_rows.items()},
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain_ms,

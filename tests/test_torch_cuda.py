@@ -996,6 +996,54 @@ def test_ddp_across_cards_matches_one_card(tmp_path):
 
 
 @pytest.mark.cuda
+def test_tp_across_cards_matches_one_card(tmp_path):
+    """`coco_instance_r50` trained tensor-parallel over NCCL through
+    `tools/ddp_bench.py --model 2` under `torch.distributed.run`: mesh
+    (data 1, model 2) on 2 cards and, with 4 cards, (2, 2), 2 images a data
+    rank at 512x512 for 2 steps. Every rank ends with the same gathered
+    parameters, each rank's state bytes are the rules' count, and the first
+    step's losses and grad_norm are one card's on the same global batch
+    within the tool's REL. Skips below 2 cards."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.models.maskformer import MaskFormer
+    from bm2f_tpu_torch.parallel import tp as tparallel
+    from bm2f_tpu_torch.tools.ddp_bench import compare
+
+    require_cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 or more cards")
+    with torch.device("meta"):
+        _, sharded, total = tparallel.count_sharded(
+            MaskFormer(get_config("coco_instance_r50").model), 2)
+    root = Path(__file__).resolve().parent.parent
+    for data in ((1, 2) if n >= 4 else (1,)):
+        common = ["--ims-per-batch", str(2 * data), "--size", "512", "--steps", "2",
+                  "--profile-steps", "1"]
+        runs = {
+            "multi": [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                      str(2 * data), "-m", "bm2f_tpu_torch.tools.ddp_bench", "--model", "2"]
+            + common,
+            "single": [sys.executable, "-m", "bm2f_tpu_torch.tools.ddp_bench", "--single",
+                       "--share-of", str(data)] + common,
+        }
+        for name, cmd in runs.items():
+            res = subprocess.run(cmd + ["--out", str(tmp_path / f"{name}{data}.json")],
+                                 cwd=root, capture_output=True, text=True, timeout=900)
+            assert res.returncode == 0, (name, res.stdout[-2000:], res.stderr[-4000:])
+        got = compare(str(tmp_path / f"single{data}.json"), str(tmp_path / f"multi{data}.json"))
+        assert got["max_rel_vs_single"] <= got["rel_bound"]
+        multi = json.loads((tmp_path / f"multi{data}.json").read_text())
+        assert multi["mesh"] == [data, 2]
+        assert multi["state_bytes_by_rank"] == [3 * (total - sharded // 2)] * (2 * data)
+
+
+@pytest.mark.cuda
 def test_ddp_eval_gathers_across_cards_on_nccl(tmp_path):
     """`python -m bm2f_tpu_torch.train --distributed --eval-only` over NCCL,
     one rank a card (up to 4), on a synthetic COCO split: each rank

@@ -84,9 +84,14 @@ def test_init_distributed_names_what_is_missing_and_never_falls_back(monkeypatch
 
 
 def test_tensor_parallelism_raises_citing_item_20():
+    """ROADMAP item 20, tensor parallelism, is ported: `mesh.model` 2 no
+    longer refuses as unported (the refusal cited item 20). Without a group
+    of ranks it divides it raises naming the mesh and the world
+    (tests/test_torch_tp*.py train it)."""
     cfg = get_config(CONFIG, {**TINY, "mesh.model": 2})
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(ValueError, match="mesh.model=2 does not divide the world of 1") as e:
         Trainer(cfg, device="cpu")
+    assert "item 20" not in str(e.value)
 
 
 def test_writers_do_nothing_off_rank_0(monkeypatch, tmp_path, capsys):

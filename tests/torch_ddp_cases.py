@@ -101,14 +101,45 @@ def _upstream_denominators(v: torch.Tensor) -> torch.Tensor:
     return torch.cat([global_sum(v[:1]), v[1:] * world_size()])
 
 
+def _no_f(x, tp):
+    """Megatron's f with its backward all-reduce left out."""
+    return x
+
+
+def _bias_on_every_rank(linear, x, tp):
+    """A row-parallel layer that adds its bias before the sum over the
+    model group, so every rank adds it."""
+    import torch.nn.functional as F
+
+    from bm2f_tpu_torch.parallel import tp as tparallel
+
+    b = None if linear.bias is None else linear.bias.to(x.dtype)
+    return tparallel.reduce_from_model(F.linear(x, linear.weight.to(x.dtype), b), tp)
+
+
+def _norm_counting_replicated(self, grads):
+    """grad_norm's sum of squares with the replicated parameters summed
+    over the model group too, so that each counts T times."""
+    import torch.distributed as dist
+
+    sq = torch.cat([g.reshape(-1) for g in grads]).square().sum()
+    dist.all_reduce(sq, group=self.model_group)
+    return sq
+
+
 def _patched(variant: str):
     """What `variant` replaces: "ours" nothing; "num_masks_only" the
     criteria's denominators (`_upstream_denominators`); "mean_grads" the
-    DDP hook by DDP's default, which averages the gradients."""
+    DDP hook by DDP's default, which averages the gradients. Under tensor
+    parallelism: "no_f_backward" Megatron's f by the identity (no gradient
+    sum over the model group), "bias_every_rank" the row-parallel layers
+    by ones that add their bias on every rank, "norm_replicated_t_times"
+    grad_norm's sum by one that counts each replicated parameter T times."""
     from torch.distributed.algorithms.ddp_comm_hooks.default_hooks import allreduce_hook
 
     from bm2f_tpu_torch.losses import criterion
-    from bm2f_tpu_torch.train import trainer
+    from bm2f_tpu_torch.parallel import tp as tparallel
+    from bm2f_tpu_torch.train import optim, trainer
 
     if variant == "ours":
         return []
@@ -116,7 +147,23 @@ def _patched(variant: str):
         return [(criterion, "global_sum", _upstream_denominators)]
     if variant == "mean_grads":
         return [(trainer, "sum_gradients", allreduce_hook)]
+    if variant == "no_f_backward":
+        return [(tparallel, "copy_to_model", _no_f)]
+    if variant == "bias_every_rank":
+        return [(tparallel, "row_linear", _bias_on_every_rank)]
+    if variant == "norm_replicated_t_times":
+        return [(optim.AdamW, "_sharded_sq_sum", _norm_counting_replicated)]
     raise ValueError(variant)
+
+
+def _whole(trainer, tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """`tensors` by parameter name as numpy, the shares of a tensor-parallel
+    trainer gathered whole (every rank of its model group calls it)."""
+    from bm2f_tpu_torch.parallel import tp as tparallel
+
+    if trainer.shard is not None:
+        tensors = tparallel.gather_state(tensors, trainer.splits, trainer.shard)
+    return {n: t.detach().numpy().copy() for n, t in tensors.items()}
 
 
 def train_steps(config: str, overrides: dict, state_dict: Dict[str, torch.Tensor],
@@ -124,13 +171,16 @@ def train_steps(config: str, overrides: dict, state_dict: Dict[str, torch.Tensor
                 variants: Sequence[str] = ("ours",), step_count: int = 0,
                 keep_params: bool = True) -> dict:
     """For each variant: a `Trainer` on the CPU (in the process group when
-    there is one) with `state_dict` loaded and `step_count` steps taken,
-    then a step on this rank's rows (`local_rows`) of each global batch,
-    with its rows of `points[i]` (the trainer's own draws where None).
-    Returns {variant: {"metrics": [per step], "params": [per step],
-    "grads": [per step], "no_grad": names without a gradient}}."""
+    there is one) with `state_dict` loaded (cut to the rank's shares under
+    tensor parallelism, `overrides`' "mesh.model") and `step_count` steps
+    taken, then a step on this rank's rows (`local_rows`) of each global
+    batch, with its rows of `points[i]` (the trainer's own draws where
+    None). Returns {variant: {"metrics": [per step], "params": [per step],
+    "grads": [per step] (whole tensors), "replicated": [per step] (the
+    rank's replicated parameters), "no_grad": names without a gradient}}."""
     from bm2f_tpu_torch.config import get_config
     from bm2f_tpu_torch.parallel import local_rows
+    from bm2f_tpu_torch.parallel import tp as tparallel
     from bm2f_tpu_torch.train.trainer import Trainer
 
     cfg = get_config(config, overrides)
@@ -142,10 +192,15 @@ def train_steps(config: str, overrides: dict, state_dict: Dict[str, torch.Tensor
             setattr(mod, name, value)
         try:
             trainer = Trainer(cfg, device="cpu")
-            trainer.model.load_state_dict(state_dict, strict=True)
+            local = state_dict
+            if trainer.shard is not None:
+                local = tparallel.shard_state(state_dict, trainer.splits,
+                                              trainer.shard.rank, trainer.shard.size)
+            trainer.model.load_state_dict(local, strict=True)
             trainer.optimizer.count = step_count
             opt = trainer.optimizer
-            res = {"metrics": [], "params": [], "grads": [], "no_grad": set(), "lr": [],
+            res = {"metrics": [], "params": [], "grads": [], "replicated": [],
+                   "no_grad": set(), "lr": [],
                    "lr_mult": {g.name: g.lr_mult for g in opt.groups},
                    "clip": opt.cfg.clip_gradients}
             for batch, pts in zip(batches, points):
@@ -158,9 +213,11 @@ def train_steps(config: str, overrides: dict, state_dict: Dict[str, torch.Tensor
                 named = list(trainer.model.named_parameters())
                 res["no_grad"] |= {n for n, p in named if p.grad is None}
                 if keep_params:
-                    res["params"].append({n: p.detach().numpy().copy() for n, p in named})
-                    res["grads"].append({n: p.grad.numpy().copy() for n, p in named
-                                         if p.grad is not None})
+                    res["params"].append(_whole(trainer, dict(named)))
+                    res["grads"].append(_whole(trainer, {n: p.grad for n, p in named
+                                                         if p.grad is not None}))
+                    res["replicated"].append({n: p.detach().numpy().copy()
+                                              for n, p in named if n not in trainer.splits})
             out[variant] = res
         finally:
             for mod, name, value in saved:

@@ -110,21 +110,23 @@ def randomize(tree, rng: np.random.RandomState, scale: float = 0.05,
     return jax.tree_util.tree_map_with_path(f, tree)
 
 
-def jax_global_step(config, overrides, variables, batch, step=0, key=11):
-    """One step of the JAX `Trainer` over a (2, 1) mesh of virtual CPU
-    devices (conftest's) on the global `batch`, from `variables` at `step`
-    (the AdamW counts too): the data-parallel step of the JAX package, whose
-    host LAP runs through `make_sharded_assign_fn`. Returns (metrics, new
-    params under the port's keys, step_rng, the JAX config)."""
+def jax_global_step(config, overrides, variables, batch, step=0, key=11, mesh=(2, 1)):
+    """One step of the JAX `Trainer` over a (data, model) `mesh` of virtual
+    CPU devices (conftest's; (2, 1) by default) on the global `batch`, from
+    `variables` at `step` (the AdamW counts too): the data-parallel step of
+    the JAX package, with its tensor-parallel state shardings where the
+    model axis is > 1, whose host LAP runs through `make_sharded_assign_fn`.
+    Returns (metrics, new params under the port's keys, step_rng, the JAX
+    config)."""
     import jax.numpy as jnp
 
     from bm2f_tpu.config import get_config
     from bm2f_tpu.train.optim import make_optimizer
     from bm2f_tpu.train.trainer import Trainer, TrainState
 
-    jcfg = get_config(config, {**overrides, "mesh.data": 2})
+    jcfg = get_config(config, {**overrides, "mesh.data": mesh[0], "mesh.model": mesh[1]})
     trainer = Trainer(jcfg)
-    assert trainer.mesh.devices.shape == (2, 1)
+    assert trainer.mesh.devices.shape == tuple(mesh)
     params = jax.tree.map(jnp.asarray, variables["params"])
     trainer.tx = make_optimizer(jcfg.train.optimizer, params)
     opt_state = jax.tree.map(
