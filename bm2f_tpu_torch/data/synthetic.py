@@ -17,6 +17,8 @@ which registers `coco_2017_val` (evaluator "coco"), `coco_2017_val_panoptic`
 ("coco_panoptic_seg") and `ade20k_sem_seg_val` ("sem_seg"). Images are
 JPEG because the panoptic and ADE20K layouts name them `.jpg`
 (`data/coco.py` maps a panoptic PNG's name to its image's).
+`write_predicted_instances` writes a `coco_2017_val` whose instances are a
+model's own predictions, for checks whose AP must depend on the weights.
 
 Each image holds a few rectangles and ellipses: `THINGS` thing classes
 (instances) over `STUFF` stuff classes, one thing region marked crowd, a
@@ -158,6 +160,52 @@ def write_synthetic_coco(root: str, sizes: Sequence[Tuple[int, int]] = COCO_SIZE
         json.dump({"images": images, "annotations": panoptic, "categories": cats}, f)
     return {"coco_2017_val": "coco", "coco_2017_val_panoptic": "coco_panoptic_seg",
             "ade20k_sem_seg_val": "sem_seg"}
+
+
+def write_predicted_instances(root: str, source: str, predictions, num_classes: int
+                              ) -> Dict[str, str]:
+    """`coco_2017_val` under `root` with the images of the split under
+    `source` (copied) and a model's own predictions as its instances, so
+    that the mask AP depends on the weights: the model that made them
+    scores 100 (less where it predicted empty masks), other weights less.
+    `predictions` holds one (labels (N,), masks (N, H, W) bool) pair an
+    image, in any order: a pair goes to the image of its masks' size, so
+    the split's sizes must differ. Label l is category l + 1 of
+    `num_classes`; empty masks are left out. Returns what
+    `register_all_builtin_datasets(root)` will register."""
+    import shutil
+
+    with open(os.path.join(source, "coco", "annotations", "instances_val2017.json")) as f:
+        images = json.load(f)["images"]
+    by_size = {(im["height"], im["width"]): im for im in images}
+    if len(by_size) != len(images) or len(predictions) != len(images):
+        raise ValueError(f"{len(predictions)} predictions for images of sizes "
+                         f"{[(im['height'], im['width']) for im in images]}: one an "
+                         "image, each of its own size")
+    img_dir = os.path.join(root, "coco", "val2017")
+    ann_dir = os.path.join(root, "coco", "annotations")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+    instances = []
+    for labels, masks in predictions:
+        masks = np.asarray(masks, bool)
+        im = by_size[masks.shape[1:]]
+        shutil.copy(os.path.join(source, "coco", "val2017", im["file_name"]), img_dir)
+        for label, m in zip(np.asarray(labels).tolist(), masks):
+            if not m.any():
+                continue
+            ys, xs = np.nonzero(m)
+            instances.append({
+                "id": len(instances) + 1, "image_id": im["id"],
+                "category_id": int(label) + 1, "segmentation": rle_encode(m.astype(np.uint8)),
+                "area": int(m.sum()), "iscrowd": 0,
+                "bbox": [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                         int(ys.max() - ys.min() + 1)]})
+    with open(os.path.join(ann_dir, "instances_val2017.json"), "w") as f:
+        json.dump({"images": images, "annotations": instances,
+                   "categories": [{"id": c + 1, "name": f"class_{c}"}
+                                  for c in range(num_classes)]}, f)
+    return {"coco_2017_val": "coco"}
 
 
 # YouTube-VIS: 40 classes, 1280x720 frames; the val split's lengths put its

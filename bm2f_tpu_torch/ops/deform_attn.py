@@ -421,39 +421,64 @@ def _shapes_arg(spatial_shapes):
     return (ctypes.c_int * (2 * L))(*[int(v) for hw in spatial_shapes for v in hw])
 
 
+class FwdLaunch(NamedTuple):
+    """One prepared K1 call: its output, whether `value` is bf16, the C
+    entry point's arguments, and the tensors they point into (kept alive)."""
+
+    out: torch.Tensor
+    bf16: bool
+    args: tuple
+    tensors: tuple
+
+
+def prepare_fwd(value, spatial_shapes, sampling_locations,
+                attention_weights) -> FwdLaunch:
+    """K1's preparation: the checks, the output's allocation and the tile
+    plan on the device (built once per shape)."""
+    B, S, M, D, Q, L, P = _cuda_dims(value, spatial_shapes, sampling_locations,
+                                     attention_weights,
+                                     value_dtypes=(torch.float32, torch.bfloat16))
+    out = torch.empty((B, Q, M * D), device=value.device, dtype=torch.float32)
+    tile_ptr, tile_q, n_tiles = _device_plan(_shapes_key(spatial_shapes), Q, False,
+                                             value.device)
+    args = (value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
+            out.data_ptr(), tile_ptr.data_ptr(), tile_q.data_ptr(),
+            _shapes_arg(spatial_shapes), B, S, M, D, Q, L, P, n_tiles, _stream(value))
+    return FwdLaunch(out, value.dtype == torch.bfloat16, args,
+                     (value, sampling_locations, attention_weights, tile_ptr, tile_q))
+
+
+def launch_fwd(call: FwdLaunch) -> torch.Tensor:
+    """Launch K1 on a prepared call; returns its output. f32 launches count
+    in `ms_deform_attn_cuda.launches`, bf16 launches in `.launches_bf16`."""
+    if call.out.numel() == 0:
+        return call.out
+    fn = _kernel(_FWD_SOURCE, "ms_deform_attn_fwd_bf16" if call.bf16 else "ms_deform_attn_fwd",
+                 n_tensors=4)
+    _check(fn(*call.args), "ms_deform_attn_fwd")
+    if call.bf16:
+        ms_deform_attn_cuda.launches_bf16 += 1
+    else:
+        ms_deform_attn_cuda.launches += 1
+    return call.out
+
+
 def ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
                         attention_weights) -> torch.Tensor:
     """Launch K1: an f32 output from contiguous CUDA tensors, `value` f32 or
     bf16 and the rest f32. Raises on anything else, when the build or the
     launch fails, and when grad mode is on and an input requires grad: the
     output has no `grad_fn`, so a caller that wants gradients goes through
-    `ms_deform_attn` (the autograd Function). f32 launches count in
-    `.launches`, bf16 launches in `.launches_bf16`."""
+    `ms_deform_attn` (the autograd Function). `prepare_fwd` then
+    `launch_fwd`; f32 launches count in `.launches`, bf16 launches in
+    `.launches_bf16`."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (value, sampling_locations, attention_weights)):
         raise RuntimeError(
             "ms_deform_attn_cuda would cut the gradient here: call "
             "ms_deform_attn, whose autograd Function runs K1 and K2")
-    B, S, M, D, Q, L, P = _cuda_dims(value, spatial_shapes, sampling_locations,
-                                     attention_weights,
-                                     value_dtypes=(torch.float32, torch.bfloat16))
-    out = torch.empty((B, Q, M * D), device=value.device, dtype=torch.float32)
-    if out.numel() == 0:
-        return out
-    bf16 = value.dtype == torch.bfloat16
-    fn = _kernel(_FWD_SOURCE, "ms_deform_attn_fwd_bf16" if bf16 else "ms_deform_attn_fwd",
-                 n_tensors=4)
-    tile_ptr, tile_q, n_tiles = _device_plan(_shapes_key(spatial_shapes), Q, False,
-                                             value.device)
-    _check(fn(value.data_ptr(), sampling_locations.data_ptr(),
-              attention_weights.data_ptr(), out.data_ptr(), tile_ptr.data_ptr(),
-              tile_q.data_ptr(), _shapes_arg(spatial_shapes), B, S, M, D, Q, L, P, n_tiles,
-              _stream(value)), "ms_deform_attn_fwd")
-    if bf16:
-        ms_deform_attn_cuda.launches_bf16 += 1
-    else:
-        ms_deform_attn_cuda.launches += 1
-    return out
+    return launch_fwd(prepare_fwd(value, spatial_shapes, sampling_locations,
+                                  attention_weights))
 
 
 ms_deform_attn_cuda.launches = 0

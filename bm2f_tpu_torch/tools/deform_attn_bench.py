@@ -39,6 +39,7 @@ import torch
 
 from bm2f_tpu_torch.ops import cuda_build, deform_attn
 from bm2f_tpu_torch.ops.deform_attn import TilePlan, tile_plan
+from bm2f_tpu_torch.tools.device import timed_ms
 
 M, D, P = 8, 32, 4
 SERVE_SHAPES = ((25, 25), (50, 50), (100, 100))  # 800x800, strides 32, 16, 8
@@ -64,20 +65,6 @@ def deform_inputs(B, shapes, Q, gen, dev, loc_range=None):
         loc = ref[None, :, None, :, None, :] + off / norm[None, None, None, :, None, :]
     attn = torch.softmax(torch.randn(B, Q, M, L * P, generator=gen), -1)
     return value, loc.contiguous().to(dev), attn.view(B, Q, M, L, P).to(dev)
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of `fn` over `iters` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def variant_modules(specs):
@@ -149,7 +136,7 @@ def bench(kernel, shapes, B, variants, gen, dev):
     order = list(calls)
     times = {name: [] for name in order}
     for name in order + order[::-1]:
-        times[name].append(cuda_ms(calls[name], ITERS[kernel]))
+        times[name].append(timed_ms(calls[name], ITERS[kernel]))
     return [{"kernel": kernel, "shapes": "serve" if shapes == SERVE_SHAPES else "train",
              "B": B, "design": name, "ms": [round(t, 4) for t in times[name]],
              "max_abs_vs_cells": errs[name],
@@ -187,7 +174,7 @@ def bwd_stages(shapes, B, bf16, gen, dev):
                                                         dims)}
     return {"kernel": "bwd_stages", "dtype": "bf16" if bf16 else "f32", "B": B,
             "shapes": "train", "samples": keys.numel(), "valid_corners": int((wa != 0).sum()),
-            **{name: round(cuda_ms(fn, ITERS["bwd"]), 4) for name, fn in stages.items()}}
+            **{name: round(timed_ms(fn, ITERS["bwd"]), 4) for name, fn in stages.items()}}
 
 
 def main(argv=None) -> int:

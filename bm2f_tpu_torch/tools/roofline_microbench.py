@@ -83,6 +83,7 @@ from bm2f_tpu_torch.ops.gather_probe import (
     row_gather_sum_plain,
     rows_read,
 )
+from bm2f_tpu_torch.tools.device import timed_ms
 
 BM = 32  # B=4 x M=8 heads
 QP = 13312  # 13125 queries padded to 26 x 512
@@ -112,20 +113,6 @@ def make_inputs(S: int, coherent: bool, bm: int = None, qp: int = None,
     else:
         idx = rng.randint(0, S, (bm, k, qp)).astype(np.int32)
     return table, idx
-
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of `fn` over `iters` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(impl: str, bm: int, k: int, qp: int, n_rows: int):
@@ -207,13 +194,13 @@ def bench_level(S: int, iters: int, coherent: bool = False, impls=None,
         del out
         if dev.type == "cuda":
             line["device"] = torch.cuda.get_device_name(dev)
-            ms = cuda_ms(fn, iters)
+            ms = timed_ms(fn, iters)
             flat_table = t.view(-1, ROW)
             line.update(
                 ms_per_level_layer=ms, ns_per_descriptor=ms * 1e6 / n_desc,
                 share_of_bound=line["bound_ms"] / ms,
-                plain_ms=cuda_ms(lambda t=t: row_gather_sum_plain(t, idx), 3),
-                embedding_bag_ms=cuda_ms(
+                plain_ms=timed_ms(lambda t=t: row_gather_sum_plain(t, idx), 3),
+                embedding_bag_ms=timed_ms(
                     lambda: F.embedding_bag(flat_idx, flat_table, mode="sum"), iters))
             if variants:
                 line["turns"] = time_designs(name, fn, t, idx, qt, want, iters, variants)
@@ -242,7 +229,7 @@ def time_designs(name, shipped, table, idx, qt, want, iters, variants):
     order = list(calls)
     turns = {label: [] for label in order}
     for label in order + order[::-1]:
-        turns[label].append(cuda_ms(calls[label], iters))
+        turns[label].append(timed_ms(calls[label], iters))
     return turns
 
 

@@ -247,6 +247,29 @@ Phases, each printing its own line:
      requests and 1 bf16 request at 800x800, the f32 forward against an
      f64 copy (V1_F64_REL), 3 train steps at B=2, 1024x1024 (no K1 or K2
      launch);
+  H1-H5. the root tools (`bm2f_tpu_torch/tools/`), H1-H4 after F, H5
+     after E on phase 19's split, every count set to 0 just before each
+     and read just after, their iteration counts cut (H_ITERS), never
+     their shapes:
+  H1. `profile_forward` at its config (`coco_instance_r50` in bf16, B=4,
+     800x800): each segment's time; K1 on a bf16 `value` 6 launches a full
+     forward and 6 a 6-layer pixel decoder; the raw op at the encoder's
+     shapes against `ms_deform_attn_plain` (phase 13's tolerance);
+  H2. `profile_kernel`: K1's full call, its preparation and its launch
+     alone at B=4, 800x800 on a bf16 `value`; the full call no faster than
+     the launch alone, whose output is bitwise the full call's;
+  H3. `profile_criterion --iters 3`: the criterion's value and gradient
+     with `jv_assign` at the train shapes, a finite loss, its ms a step
+     (no K1 or K2 launch);
+  H4. `analyze_model` on `coco_instance_r50` at 800: the parameter table
+     and the FLOPs through K1 (6 launches) equal to the FLOPs with the
+     deformable core routed through `ms_deform_attn_plain`;
+  H5. `zoo_parity` from a seeded f32 model saved with the port's
+     Checkpointer, on phase 19's images with the model's own predictions
+     as their instances (its AP depends on the weights): exit 0 with
+     `--expected AP=<the AP run_eval gives it in memory>` at tolerance
+     1e-6, exit 1 against the zoo's AP 43.7, and the gate failing from
+     another seed's checkpoint (K1 6 launches an image in each eval);
  38. one JSON line {"kernels": [...]}, then the nvidia-smi line, then the
      result line {"ok": true, "device": {...}} last.
 
@@ -457,17 +480,11 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of `fn` over `iters` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean device time of `fn` over `iters` back-to-back calls (the port's
+    timer, `tools/device.timed_ms`)."""
+    from bm2f_tpu_torch.tools.device import timed_ms
+
+    return timed_ms(fn, iters, warmup)
 
 
 def deform_inputs(B, shapes, Q, gen, dev, loc_range=None):
@@ -3378,6 +3395,193 @@ def v1_path(dev):
         torch.cuda.empty_cache()
 
 
+
+# -- the root tools (phases H1-H5) ---------------------------------------------------
+# the H phases' iteration counts, cut so that H1-H5 take about a minute;
+# their shapes are the tools' own
+H_ITERS = {"profile_forward": 10, "profile_kernel": 10, "profile_criterion": 3}
+
+
+def tools_profile_forward():
+    """Phase H1: `python -m bm2f_tpu_torch.tools.profile_forward` (its
+    `main`) at its full config (B=4, 800x800, bf16): K1 on a bf16 `value`
+    6 launches in a full forward and 6 in the 6-layer pixel decoder, none
+    in f32; the raw op's output against `ms_deform_attn_plain` at phase
+    13's tolerance. Returns (K1 f32, K1 bf16 launches of the phase, its
+    segment times)."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda, ms_deform_attn_plain
+    from bm2f_tpu_torch.tools import profile_forward
+
+    t0 = time.perf_counter()
+    reset_counts()
+    res = profile_forward.main(["--iters", str(H_ITERS["profile_forward"])])
+    launches = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)
+    per = res["launches"]
+    if (per["full"], per["pixel_decoder"], per["pixel_decoder_0"],
+            per["ms_deform_attn"]) != (6, 6, 0, 1) or launches[0] != 0:
+        raise AssertionError(f"profile_forward: K1 bf16 launches {per} a call, f32 "
+                             f"{launches[0]}; expected 6 a forward and a 6-layer pixel "
+                             "decoder, 0 in f32")
+    value, shapes, loc, attn, out = res.pop("raw_op")
+    want = ms_deform_attn_plain(value, shapes, loc, attn)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)  # phase 13's
+    log("H1", tool="profile_forward", k1_bf16_launches=launches[1],
+        raw_op_max_abs_err=f"{(out - want).abs().max().item():.3e}",
+        **{f"{k}_ms": f"{v:.4f}" for k, v in res["ms"].items()},
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    del value, loc, attn, out, want
+    return launches, res["ms"]
+
+
+def tools_profile_kernel():
+    """Phase H2: `profile_kernel` (its `main`): the full call, the
+    preparation and the launch alone; the full call takes no less than the
+    launch alone, whose output is bitwise the full call's. Returns (K1 f32,
+    bf16 launches, the three times)."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+    from bm2f_tpu_torch.tools import profile_kernel
+
+    t0 = time.perf_counter()
+    reset_counts()
+    res = profile_kernel.main(["--iters", str(H_ITERS["profile_kernel"])])
+    launches = (ms_deform_attn_cuda.launches, ms_deform_attn_cuda.launches_bf16)
+    ms = res["ms"]
+    if not res["bitwise"] or ms["full"] < ms["kernel"] or launches[0] or not launches[1]:
+        raise AssertionError(f"profile_kernel: {ms}, bitwise {res['bitwise']}, K1 "
+                             f"launches {launches}")
+    log("H2", tool="profile_kernel", k1_bf16_launches=launches[1],
+        **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+        ns_per_desc="/".join(f"{v * 1e6 / res['ndesc']:.3f}" for v in ms.values()),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    return launches, ms
+
+
+def tools_profile_criterion():
+    """Phase H3: `profile_criterion --iters 3`: a finite loss and its time;
+    neither K1 nor K2 launches."""
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_bwd_cuda, ms_deform_attn_cuda
+    from bm2f_tpu_torch.tools import profile_criterion
+
+    t0 = time.perf_counter()
+    reset_counts()
+    res = profile_criterion.main(["--iters", str(H_ITERS["profile_criterion"])])
+    counts = [f.launches + f.launches_bf16 for f in (ms_deform_attn_cuda,
+                                                      ms_deform_attn_bwd_cuda)]
+    if not np.isfinite(res["loss"]) or any(counts):
+        raise AssertionError(f"profile_criterion: loss {res['loss']}, K1 / K2 launches "
+                             f"{counts}")
+    log("H3", tool="profile_criterion", loss=f"{res['loss']:.4f}",
+        ms_per_step=f"{res['ms']:.3f}",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    return res["ms"]
+
+
+def tools_analyze_model():
+    """Phase H4: `analyze_model` on CONFIG at 800 on the card: the
+    parameter table and the FLOPs through K1 (6 launches), then the FLOPs
+    of the same model with the deformable core routed through
+    `ms_deform_attn_plain`: the same numbers. Returns K1's f32 launches."""
+    from bm2f_tpu_torch.ops import deform_attn
+    from bm2f_tpu_torch.tools import analyze_model
+
+    t0 = time.perf_counter()
+    argv = ["--config", CONFIG, "--size", "800"]
+    k1_fn = deform_attn.ms_deform_attn_cuda
+    reset_counts()
+    res = analyze_model.main(argv)
+    k1 = k1_fn.launches
+    reset_counts()
+    with mock.patch.object(deform_attn, "ms_deform_attn_cuda",
+                           lambda v, s, l, a: deform_attn.ms_deform_attn_plain(v, s, l, a)):
+        plain = analyze_model.main(argv + ["--tasks", "flops"])
+    k1_plain = k1_fn.launches
+    if k1 != 6 or k1_plain != 0 or (res["flops"], res["k1_flops"]) != (
+            plain["flops"], plain["k1_flops"]):
+        raise AssertionError(f"analyze_model: FLOPs {res['flops']} + {res['k1_flops']} "
+                             f"through K1 ({k1} launches) against {plain['flops']} + "
+                             f"{plain['k1_flops']} through the plain version")
+    log("H4", tool="analyze_model", params=res["params"],
+        flops=res["flops"], k1_flops=res["k1_flops"], k1_launches=k1,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    return k1
+
+
+def tools_zoo_parity(data_root: str):
+    """Phase H5: `zoo_parity` from a checkpoint of the port, on a split
+    whose instances are the model's own predictions, so that its AP depends
+    on the weights. A seeded f32 CONFIG (its deformable projections
+    perturbed as phase 5's) predicts phase 19's images through `run_eval`;
+    `write_predicted_instances` writes them as the split's instances, and
+    `run_eval` on that split gives the model's AP (100 where its masks are
+    not empty). The model is saved with the port's Checkpointer, as phase
+    23 saves one, and so is another seed's model. `zoo_parity` with
+    `--expected AP=<that AP>` at tolerance 1e-6: exit 0 from the model's
+    checkpoint; exit 1 with the zoo's AP 43.7, and from the other seed's
+    checkpoint. K1 6 launches an image in each of the five evals. Returns
+    K1's f32 launches."""
+    import os
+
+    from bm2f_tpu_torch import eval as port_eval
+    from bm2f_tpu_torch.config import get_config
+    from bm2f_tpu_torch.data import DatasetCatalog
+    from bm2f_tpu_torch.data.datasets import register_all_builtin_datasets
+    from bm2f_tpu_torch.data.synthetic import write_predicted_instances
+    from bm2f_tpu_torch.evaluation.coco_eval import COCOMaskAPEvaluator
+    from bm2f_tpu_torch.models import build_model
+    from bm2f_tpu_torch.ops.deform_attn import ms_deform_attn_cuda
+    from bm2f_tpu_torch.tools import zoo_parity
+    from bm2f_tpu_torch.tools.profile_request import perturb_deformable
+    from bm2f_tpu_torch.train.checkpoint import Checkpointer
+
+    t0 = time.perf_counter()
+    n = len(DatasetCatalog.get("coco_2017_val"))
+    cfg = get_config(CONFIG)
+    model = build_model(cfg, device="cuda", seed=0)
+    perturb_deformable(model)
+    seen = []
+    process = COCOMaskAPEvaluator.process
+
+    def recorded(self, pred, gt):
+        seen.append((pred["labels"], pred["masks"]))
+        return process(self, pred, gt)
+
+    pred_root = os.path.join(data_root, "zoo")
+    mine, other = (tempfile.mkdtemp(prefix=f"chip_smoke_zoo_{k}_", dir=ROOT / "output")
+                   for k in ("mine", "other"))
+    try:
+        reset_counts()
+        with mock.patch.object(COCOMaskAPEvaluator, "process", recorded):
+            port_eval.run_eval(cfg, model, "coco_2017_val")
+        write_predicted_instances(pred_root, data_root, seen, cfg.model.num_classes)
+        register_all_builtin_datasets(pred_root, force=True)
+        ap = port_eval.run_eval(cfg, model, "coco_2017_val")["AP"]
+        Checkpointer(mine).save_state(0, {"step": 0, "model": model.state_dict()})
+        del model
+        Checkpointer(other).save_state(
+            0, {"step": 0, "model": build_model(cfg, device="cuda", seed=1).state_dict()})
+        os.environ["DETECTRON2_DATASETS"] = pred_root
+        argv = ["--config", CONFIG, "--dataset", "coco_2017_val", "--weights"]
+        exact = ["--expected", f"AP={float(ap)!r}", "--tolerance", "1e-6"]
+        codes = (zoo_parity.main(argv + [mine] + exact), zoo_parity.main(argv + [mine]))
+        res_other, ok_other = zoo_parity.zoo_parity(
+            CONFIG, "coco_2017_val", other, {"AP": float(ap)}, 1e-6)
+    finally:
+        for d in (mine, other):
+            shutil.rmtree(d, ignore_errors=True)
+        register_all_builtin_datasets(data_root, force=True)
+    k1 = ms_deform_attn_cuda.launches
+    if (codes != (0, 1) or ok_other or k1 != 5 * 6 * n or ms_deform_attn_cuda.launches_bf16
+            or not ap > res_other["AP"]):
+        raise AssertionError(f"zoo_parity: exit codes {codes} (expected 0, 1), AP {ap} "
+                             f"against {res_other['AP']} from seed 1 (gate {ok_other}), K1 "
+                             f"launches {k1} (expected {5 * 6 * n})")
+    log("H5", tool="zoo_parity", AP=repr(float(ap)), AP_seed1=repr(float(res_other["AP"])),
+        exit_codes=codes, gt_instances=sum(int(np.asarray(m).any((1, 2)).sum())
+                                           for _, m in seen),
+        images=n, k1_launches=k1, seconds=f"{time.perf_counter() - t0:.2f}")
+    return k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3621,6 +3825,10 @@ def main() -> int:
 
         # -- E. retry_if_oom forced on the card ---------------------------------------------
         k1_oom = oom_retry_path(dev)
+        torch.cuda.empty_cache()
+
+        # -- H5. zoo_parity on the split, from a checkpoint of the port ---------------------
+        k1_zoo = tools_zoo_parity(data_root)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
 
@@ -3689,6 +3897,15 @@ def main() -> int:
 
     # -- F. the MaskFormer-v1 models -------------------------------------------------------
     v1_path(dev)
+    torch.cuda.empty_cache()
+
+    # -- H1-H4. the root tools: the forward's segments, K1 apart, the criterion, FLOPs -----
+    k_h1, _ = tools_profile_forward()
+    torch.cuda.empty_cache()
+    k_h2, _ = tools_profile_kernel()
+    tools_profile_criterion()
+    torch.cuda.empty_cache()
+    k1_analyze = tools_analyze_model()
 
     # -- 38. result ---------------------------------------------------------
     k_ms, p_ms, bound, by = timing[1]
@@ -3704,7 +3921,7 @@ def main() -> int:
                      + k1_video_eval + k_video["mask"][0] + k_video["weak"][0]
                      + k1_swin_serve + k1_swin_train + k1_swin_video + k1_predictor
                      + k1_demo + k1_demo_video + k1_tta + k1_oom + k_ddp1[0] + k_ddp2[0]
-                     + k_tp[0]),
+                     + k_tp[0] + k1_analyze + k1_zoo),
         "launches_by_path": {"serve": launches, "train": k1_train, "train_weak": k1_weak,
                              "train_ddp_world1_nccl": k_ddp1[0],
                              "train_ddp_two_ranks_gloo": k_ddp2[0],
@@ -3718,7 +3935,8 @@ def main() -> int:
                              "eval_video_swin_l": k1_swin_video,
                              "predictor_panoptic_and_cli": k1_predictor, "demo": k1_demo,
                              "demo_video": k1_demo_video, "eval_tta": k1_tta,
-                             "eval_oom_retry": k1_oom, "v1_fpn_and_transformer_fpn": 0},
+                             "eval_oom_retry": k1_oom, "v1_fpn_and_transformer_fpn": 0,
+                             "tools_analyze_model": k1_analyze, "tools_zoo_parity": k1_zoo},
         "eval_buckets": {str(b): row for (b, dt), row in k1_buckets.items() if dt == "f32"},
         "video_buckets": {f"Tp{tp}_S{row['S']}": row for tp, row in k1_video_rows.items()},
         "swin_l": {"serve_800x800": k1_swin_serve_row, "video": k1_swin_video_row},
@@ -3758,9 +3976,11 @@ def main() -> int:
         "route": "cuda",
         "source": "bm2f_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         "replaces": "bm2f_tpu/ops/deform_attn_pallas.py:102",
-        "launches": bf16_launches["bf16"][1] + k1b_train + k1b_eval,
+        "launches": bf16_launches["bf16"][1] + k1b_train + k1b_eval + k_h1[1] + k_h2[1],
         "launches_by_path": {"serve_bf16": bf16_launches["bf16"][1], "train_bf16": k1b_train,
-                             **{f"eval_{r}": n for r, (_, n) in eval_launches.items() if n}},
+                             **{f"eval_{r}": n for r, (_, n) in eval_launches.items() if n},
+                             "tools_profile_forward": k_h1[1],
+                             "tools_profile_kernel": k_h2[1]},
         "eval_buckets": {str(b): row for (b, dt), row in k1_buckets.items() if dt == "bf16"},
         "max_abs_err": k1b_err,
         "ms": k1b_ms,

@@ -38,6 +38,15 @@ ENTRY_AND_V1_MODULES = ("bm2f_tpu_torch.demo", "bm2f_tpu_torch.demo_video",
 PARALLEL_MODULES = ("bm2f_tpu_torch.parallel", "bm2f_tpu_torch.parallel.mesh")
 
 
+# the root tools and point_features, which the walk must reach
+TOOLS_MODULES = tuple(f"bm2f_tpu_torch.tools.{name}" for name in (
+    "analyze_model", "convert_torchvision_weights", "evaluate_coco_boundary_ap",
+    "evaluate_pq_for_semantic_segmentation", "prepare_ade20k_ins_seg",
+    "prepare_ade20k_pan_seg", "prepare_ade20k_sem_seg",
+    "prepare_coco_semantic_annos_from_panoptic_annos", "zoo_parity", "profile_criterion",
+    "profile_forward", "profile_kernel", "device")) + ("bm2f_tpu_torch.losses.point_features",)
+
+
 def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -49,3 +58,4 @@ def test_port_imports_no_jax():
     assert set(VIDEO_MODULES) <= set(modules), res.stdout
     assert set(ENTRY_AND_V1_MODULES) <= set(modules), res.stdout
     assert set(PARALLEL_MODULES) <= set(modules), res.stdout
+    assert set(TOOLS_MODULES) <= set(modules), res.stdout
