@@ -34,7 +34,7 @@ solve by default, or what `matching.hungarian.make_assign_fn` picks from
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,7 @@ from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import hungarian_matcher_costs
 from bm2f_tpu_torch.ops.sampling import point_sample
 from bm2f_tpu_torch.parallel import data_size, global_sum, local_rows
+from bm2f_tpu_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -63,6 +64,16 @@ class SetCriterionConfig:
     @property
     def n_candidates(self) -> int:
         return int(self.num_points * self.oversample_ratio)
+
+
+def count_targets(valid: torch.Tensor, n_valid=None) -> None:
+    """The tracing counters of a criterion's targets: "targets.slots", the
+    (B, G) slots of `valid`, and "targets.valid", the valid ones (`n_valid`
+    where the caller has it on the host, else a device sum, taken only while
+    tracing is on)."""
+    tracing.count("targets.slots", valid.numel())
+    if tracing.enabled():
+        tracing.count("targets.valid", valid.sum() if n_valid is None else n_valid)
 
 
 def draw_points(cfg: SetCriterionConfig, n_layers: int, batch: int,
@@ -195,15 +206,15 @@ def set_criterion(
     targets: Mapping[str, torch.Tensor],
     cfg: SetCriterionConfig,
     points: Mapping[str, torch.Tensor],
-    mark: Optional[Callable[[str], None]] = None,
     assign_fn: Callable[[torch.Tensor], torch.Tensor] = assign,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """outputs: pred_logits (B, Q, K+1), pred_masks (B, Q, h, w), aux_logits
     (L, B, Q, K+1), aux_masks (L, B, Q, h, w). targets: labels (B, G) int,
     masks (B, G, Hg, Wg) 0/1, valid (B, G) bool. points: `draw_points` for
     L+1 layers, aux layers first. `assign_fn` maps the (B, L+1, Q, G) costs
-    to the (B, L+1, G) assignment. `mark(stage)`, when given, is called
-    after the matcher costs, after the assignment and after the losses.
+    to the (B, L+1, G) assignment. Traced (`utils.tracing`) as the spans
+    "train.matcher_costs", "train.assign" and "train.losses" and the
+    counters "targets.valid" and "targets.slots" (`count_targets`).
     Returns (total_loss, {loss_ce, loss_mask, loss_dice, loss_ce_0, ...})."""
     tgt_labels, tgt_valid = targets["labels"], targets["valid"]
     n_aux = outputs["aux_logits"].shape[0]
@@ -211,37 +222,36 @@ def set_criterion(
     layers = [(outputs["aux_logits"][i], outputs["aux_masks"][i]) for i in range(n_aux)]
     layers.append((outputs["pred_logits"], outputs["pred_masks"]))
     tgt_nhwc = targets["masks"].float().permute(0, 2, 3, 1).contiguous()
+    count_targets(tgt_valid)
 
-    costs = torch.stack([
-        hungarian_matcher_costs(
-            logits, masks, tgt_labels, tgt_nhwc, tgt_valid, points["match"][i],
-            cost_class=cfg.class_weight, cost_mask=cfg.mask_weight,
-            cost_dice=cfg.dice_weight)
-        for i, (logits, masks) in enumerate(layers)
-    ], 1)  # (B, L+1, Q, G)
-    if mark is not None:
-        mark("matcher_costs")
-    assignment = assign_fn(costs)  # (B, L+1, G)
-    if mark is not None:
-        mark("assign")
+    with tracing.span("train.matcher_costs"):
+        costs = torch.stack([
+            hungarian_matcher_costs(
+                logits, masks, tgt_labels, tgt_nhwc, tgt_valid, points["match"][i],
+                cost_class=cfg.class_weight, cost_mask=cfg.mask_weight,
+                cost_dice=cfg.dice_weight)
+            for i, (logits, masks) in enumerate(layers)
+        ], 1)  # (B, L+1, Q, G)
+    with tracing.span("train.assign"):
+        assignment = assign_fn(costs)  # (B, L+1, G)
 
-    num_masks, labels, _ = label_denominators(layers, tgt_labels, tgt_valid, assignment, cfg)
-    losses: Dict[str, torch.Tensor] = {}
-    ce_l, mask_l, dice_l = [], [], []
-    for i, (logits, masks) in enumerate(layers):
-        ce_l.append(_loss_labels(logits, *labels[i]))
-        loss_mask, loss_dice = _loss_masks(
-            masks, tgt_nhwc, tgt_valid, assignment[:, i], num_masks, cfg,
-            points["cand"][i], points["rand"][i])
-        mask_l.append(loss_mask)
-        dice_l.append(loss_dice)
-        suffix = "" if i == len(layers) - 1 else f"_{i}"
-        losses[f"loss_ce{suffix}"] = ce_l[-1]
-        losses[f"loss_mask{suffix}"] = loss_mask
-        losses[f"loss_dice{suffix}"] = loss_dice
-    total = (cfg.class_weight * torch.stack(ce_l).sum()
-             + cfg.mask_weight * torch.stack(mask_l).sum()
-             + cfg.dice_weight * torch.stack(dice_l).sum())
-    if mark is not None:
-        mark("losses")
+    with tracing.span("train.losses"):
+        num_masks, labels, _ = label_denominators(layers, tgt_labels, tgt_valid, assignment,
+                                                  cfg)
+        losses: Dict[str, torch.Tensor] = {}
+        ce_l, mask_l, dice_l = [], [], []
+        for i, (logits, masks) in enumerate(layers):
+            ce_l.append(_loss_labels(logits, *labels[i]))
+            loss_mask, loss_dice = _loss_masks(
+                masks, tgt_nhwc, tgt_valid, assignment[:, i], num_masks, cfg,
+                points["cand"][i], points["rand"][i])
+            mask_l.append(loss_mask)
+            dice_l.append(loss_dice)
+            suffix = "" if i == len(layers) - 1 else f"_{i}"
+            losses[f"loss_ce{suffix}"] = ce_l[-1]
+            losses[f"loss_mask{suffix}"] = loss_mask
+            losses[f"loss_dice{suffix}"] = loss_dice
+        total = (cfg.class_weight * torch.stack(ce_l).sum()
+                 + cfg.mask_weight * torch.stack(mask_l).sum()
+                 + cfg.dice_weight * torch.stack(dice_l).sum())
     return total, losses

@@ -16,19 +16,21 @@ the JAX package's own draws.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Tuple
 
 import torch
 
 from bm2f_tpu_torch.losses.criterion import (
     SetCriterionConfig,
     _loss_labels,
+    count_targets,
     label_denominators,
     point_mask_losses,
 )
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import PAD_COST, point_costs
 from bm2f_tpu_torch.ops.sampling import point_sample
+from bm2f_tpu_torch.utils import tracing
 
 
 def clip_channels_last(masks: torch.Tensor) -> torch.Tensor:
@@ -97,13 +99,12 @@ def video_set_criterion(
     targets: Mapping[str, torch.Tensor],
     cfg: SetCriterionConfig,
     points: Mapping[str, torch.Tensor],
-    mark: Optional[Callable[[str], None]] = None,
     assign_fn: Callable[[torch.Tensor], torch.Tensor] = assign,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """outputs: pred_logits (B, Q, K+1), pred_masks (B, Q, T, h, w) and the
     stacked aux outputs. targets: labels (B, G), masks (B, G, T, Hg, Wg) 0/1,
     valid (B, G). points: `draw_points(cfg, L+1, B, generator, frames=T)`,
-    aux layers first. `assign_fn` and `mark` as in `set_criterion`. Returns
+    aux layers first. `assign_fn` and the tracing as in `set_criterion`. Returns
     (total_loss, {loss_ce, loss_mask, loss_dice, loss_ce_0, ...})."""
     tgt_labels, tgt_valid = targets["labels"], targets["valid"]
     n_aux = outputs["aux_logits"].shape[0]
@@ -112,38 +113,37 @@ def video_set_criterion(
     tgt = targets["masks"].float()
     tgt_clip = clip_channels_last(tgt).contiguous()
 
-    costs = torch.stack([
-        video_matcher_costs(
-            logits, masks, tgt_labels, tgt_clip, tgt_valid, points["match"][i],
-            cost_class=cfg.class_weight, cost_mask=cfg.mask_weight,
-            cost_dice=cfg.dice_weight)
-        for i, (logits, masks) in enumerate(layers)
-    ], 1)  # (B, L+1, Q, G)
-    del tgt_clip
-    if mark is not None:
-        mark("matcher_costs")
-    assignment = assign_fn(costs)  # (B, L+1, G)
-    if mark is not None:
-        mark("assign")
+    count_targets(tgt_valid)
 
-    num_masks, labels, _ = label_denominators(layers, tgt_labels, tgt_valid, assignment, cfg)
-    tgt_frames = frame_major(tgt).contiguous()
-    losses: Dict[str, torch.Tensor] = {}
-    ce_l, mask_l, dice_l = [], [], []
-    for i, (logits, masks) in enumerate(layers):
-        ce_l.append(_loss_labels(logits, *labels[i]))
-        loss_mask, loss_dice = video_loss_masks(
-            masks, tgt_frames, tgt_valid, assignment[:, i], num_masks, cfg,
-            points["cand"][i], points["rand"][i])
-        mask_l.append(loss_mask)
-        dice_l.append(loss_dice)
-        suffix = "" if i == len(layers) - 1 else f"_{i}"
-        losses[f"loss_ce{suffix}"] = ce_l[-1]
-        losses[f"loss_mask{suffix}"] = loss_mask
-        losses[f"loss_dice{suffix}"] = loss_dice
-    total = (cfg.class_weight * torch.stack(ce_l).sum()
-             + cfg.mask_weight * torch.stack(mask_l).sum()
-             + cfg.dice_weight * torch.stack(dice_l).sum())
-    if mark is not None:
-        mark("losses")
+    with tracing.span("train.matcher_costs"):
+        costs = torch.stack([
+            video_matcher_costs(
+                logits, masks, tgt_labels, tgt_clip, tgt_valid, points["match"][i],
+                cost_class=cfg.class_weight, cost_mask=cfg.mask_weight,
+                cost_dice=cfg.dice_weight)
+            for i, (logits, masks) in enumerate(layers)
+        ], 1)  # (B, L+1, Q, G)
+    del tgt_clip
+    with tracing.span("train.assign"):
+        assignment = assign_fn(costs)  # (B, L+1, G)
+
+    with tracing.span("train.losses"):
+        num_masks, labels, _ = label_denominators(layers, tgt_labels, tgt_valid, assignment, cfg)
+        tgt_frames = frame_major(tgt).contiguous()
+        losses: Dict[str, torch.Tensor] = {}
+        ce_l, mask_l, dice_l = [], [], []
+        for i, (logits, masks) in enumerate(layers):
+            ce_l.append(_loss_labels(logits, *labels[i]))
+            loss_mask, loss_dice = video_loss_masks(
+                masks, tgt_frames, tgt_valid, assignment[:, i], num_masks, cfg,
+                points["cand"][i], points["rand"][i])
+            mask_l.append(loss_mask)
+            dice_l.append(loss_dice)
+            suffix = "" if i == len(layers) - 1 else f"_{i}"
+            losses[f"loss_ce{suffix}"] = ce_l[-1]
+            losses[f"loss_mask{suffix}"] = loss_mask
+            losses[f"loss_dice{suffix}"] = loss_dice
+        total = (cfg.class_weight * torch.stack(ce_l).sum()
+                 + cfg.mask_weight * torch.stack(mask_l).sum()
+                 + cfg.dice_weight * torch.stack(dice_l).sum())
     return total, losses

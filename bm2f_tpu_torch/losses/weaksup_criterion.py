@@ -30,6 +30,7 @@ import torch
 from bm2f_tpu_torch.losses.criterion import (
     SetCriterionConfig,
     _loss_labels,
+    count_targets,
     label_denominators,
 )
 from bm2f_tpu_torch.losses.weaksup import (
@@ -42,6 +43,7 @@ from bm2f_tpu_torch.losses.weaksup import (
 )
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import PAD_COST
+from bm2f_tpu_torch.utils import tracing
 
 _BOUNDS = ("left_bounds", "right_bounds", "top_bounds", "bottom_bounds")
 
@@ -54,7 +56,8 @@ def weaksup_matcher_costs(pred_logits: torch.Tensor, pred_masks: torch.Tensor,
                           dilation: int = 2, warmup_factor: float = 1.0) -> torch.Tensor:
     """(B, Q, G) costs: the class cost plus the projection cost, plus the
     pairwise cost when `cost_pairwise` > 0; `PAD_COST` on invalid targets.
-    pred_logits (B, Q, K+1), pred_masks (B, Q, h, w)."""
+    pred_logits (B, Q, K+1), pred_masks (B, Q, h, w). Traced as the spans
+    "costs.projection" and "costs.pairwise", an image each."""
     B, Q = pred_logits.shape[:2]
     K = pred_logits.shape[-1] - 1
     labels, valid = targets["labels"], targets["valid"]
@@ -67,13 +70,16 @@ def weaksup_matcher_costs(pred_logits: torch.Tensor, pred_masks: torch.Tensor,
     c_mask = []
     for b in range(B):
         bounds = {k: targets[k][b] for k in _BOUNDS}
-        c = cost_projection * projection_cost_matrix(masks[b], targets["box_masks"][b], bounds)
+        with tracing.span("costs.projection"):
+            c = cost_projection * projection_cost_matrix(masks[b], targets["box_masks"][b],
+                                                         bounds)
         if cost_pairwise > 0.0:
             cs = targets["color_similarity"][b]
-            c = c + cost_pairwise * pairwise_cost_matrix(
-                masks[b], cs[None].expand(G, *cs.shape), targets["box_masks"][b],
-                color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
-                warmup_factor=warmup_factor)
+            with tracing.span("costs.pairwise"):
+                c = c + cost_pairwise * pairwise_cost_matrix(
+                    masks[b], cs[None].expand(G, *cs.shape), targets["box_masks"][b],
+                    color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
+                    warmup_factor=warmup_factor)
         c_mask.append(c)
     C = cost_class * c_class + torch.stack(c_mask)
     return torch.where(valid[:, None, :], C, torch.full_like(C, PAD_COST))
@@ -93,7 +99,6 @@ def weaksup_set_criterion(
     warmup_factor: float = 1.0,
     assign_fn: Callable[[torch.Tensor], torch.Tensor] = assign,
     mask_update_pix_thr: Optional[float] = None,
-    mark: Optional[Callable[[str], None]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The weak-supervision loss over the final and aux layers. Returns
     (total, {loss_ce, loss_mask_projection[, loss_pairwise], loss_ce_0,
@@ -103,9 +108,8 @@ def weaksup_set_criterion(
     computed without gradient and solved in one `assign_fn` call on (B, L+1,
     Q, G). `mask_update_pix_thr`, when given, intersects the box masks with
     the final layer's confident pixels under its assignment (reference:
-    criterion.py:625-676 update_targets) before the losses. `mark(stage)`,
-    when given, is called after the matcher costs, after the assignment and
-    after the losses."""
+    criterion.py:625-676 update_targets) before the losses. Traced as
+    `criterion.set_criterion` is."""
     use_pairwise = "pairwise" in sup_type
     labels, valid = targets["labels"], targets["valid"]
     B, G = labels.shape
@@ -113,57 +117,55 @@ def weaksup_set_criterion(
               for i in range(outputs["aux_logits"].shape[0])]
     layers.append((outputs["pred_logits"], outputs["pred_masks"]))
 
-    costs = torch.stack([
-        weaksup_matcher_costs(
-            logits, masks, targets, cost_class=cfg.class_weight,
-            cost_projection=projection_weight,
-            cost_pairwise=pairwise_weight if use_pairwise else 0.0,
-            color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
-            warmup_factor=warmup_factor)
-        for logits, masks in layers], 1)  # (B, L+1, Q, G)
-    if mark is not None:
-        mark("matcher_costs")
-    assignment = assign_fn(costs)  # (B, L+1, G)
-    if mark is not None:
-        mark("assign")
+    with tracing.span("train.matcher_costs"):
+        costs = torch.stack([
+            weaksup_matcher_costs(
+                logits, masks, targets, cost_class=cfg.class_weight,
+                cost_projection=projection_weight,
+                cost_pairwise=pairwise_weight if use_pairwise else 0.0,
+                color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
+                warmup_factor=warmup_factor)
+            for logits, masks in layers], 1)  # (B, L+1, Q, G)
+    with tracing.span("train.assign"):
+        assignment = assign_fn(costs)  # (B, L+1, G)
 
-    box_masks = targets["box_masks"]
-    if mask_update_pix_thr is not None:
-        box_masks = update_box_masks(outputs["pred_masks"].detach().float(),
-                                     assignment[:, -1], box_masks, mask_update_pix_thr)
-    # the valid targets' rows (b, g), one host synchronise a step
-    b_idx, g_idx = valid.nonzero(as_tuple=True)
-    box_v = box_masks[b_idx, g_idx]  # (N, h, w)
-    bounds_v = {k: targets[k][b_idx, g_idx] for k in _BOUNDS}
-    ones_v = torch.ones(b_idx.shape[0], device=valid.device)
-    pair_sums = ()
-    if use_pairwise:
-        # the same edges in every layer: (N, h, w, K)
-        pair_w = pairwise_weights(targets["color_similarity"][b_idx], box_v, ones_v,
-                                  color_thresh, torch.float32)
-        pair_sums = (pair_w.sum(),)
-    num_masks, ce_labels, pair_sums = label_denominators(layers, labels, valid, assignment,
-                                                         cfg, *pair_sums)
-
-    losses: Dict[str, torch.Tensor] = {}
-    ce_l, proj_l, pair_l = [], [], []
-    for i, (logits, masks) in enumerate(layers):
-        asg = assignment[:, i]
-        ce_l.append(_loss_labels(logits, *ce_labels[i]))
-        src = masks[b_idx, asg[b_idx, g_idx]].float()  # (N, h, w)
-        proj_l.append(projection_loss(src, box_v, bounds_v, ones_v, num_masks))
-        suffix = "" if i == len(layers) - 1 else f"_{i}"
-        losses[f"loss_ce{suffix}"] = ce_l[-1]
-        losses[f"loss_mask_projection{suffix}"] = proj_l[-1]
+    with tracing.span("train.losses"):
+        box_masks = targets["box_masks"]
+        if mask_update_pix_thr is not None:
+            box_masks = update_box_masks(outputs["pred_masks"].detach().float(),
+                                         assignment[:, -1], box_masks, mask_update_pix_thr)
+        # the valid targets' rows (b, g), one host synchronise a step
+        b_idx, g_idx = valid.nonzero(as_tuple=True)
+        count_targets(valid, b_idx.shape[0])
+        box_v = box_masks[b_idx, g_idx]  # (N, h, w)
+        bounds_v = {k: targets[k][b_idx, g_idx] for k in _BOUNDS}
+        ones_v = torch.ones(b_idx.shape[0], device=valid.device)
+        pair_sums = ()
         if use_pairwise:
-            pair_l.append(weighted_pairwise_loss(
-                src, pair_w, pair_sums[0], num_masks, kernel_size=kernel_size,
-                dilation=dilation, warmup_factor=warmup_factor))
-            losses[f"loss_pairwise{suffix}"] = pair_l[-1]
-    total = cfg.class_weight * torch.stack(ce_l).sum() + projection_weight * torch.stack(
-        proj_l).sum()
-    if use_pairwise:
-        total = total + pairwise_weight * torch.stack(pair_l).sum()
-    if mark is not None:
-        mark("losses")
+            # the same edges in every layer: (N, h, w, K)
+            pair_w = pairwise_weights(targets["color_similarity"][b_idx], box_v, ones_v,
+                                      color_thresh, torch.float32)
+            pair_sums = (pair_w.sum(),)
+        num_masks, ce_labels, pair_sums = label_denominators(layers, labels, valid, assignment,
+                                                             cfg, *pair_sums)
+
+        losses: Dict[str, torch.Tensor] = {}
+        ce_l, proj_l, pair_l = [], [], []
+        for i, (logits, masks) in enumerate(layers):
+            asg = assignment[:, i]
+            ce_l.append(_loss_labels(logits, *ce_labels[i]))
+            src = masks[b_idx, asg[b_idx, g_idx]].float()  # (N, h, w)
+            proj_l.append(projection_loss(src, box_v, bounds_v, ones_v, num_masks))
+            suffix = "" if i == len(layers) - 1 else f"_{i}"
+            losses[f"loss_ce{suffix}"] = ce_l[-1]
+            losses[f"loss_mask_projection{suffix}"] = proj_l[-1]
+            if use_pairwise:
+                pair_l.append(weighted_pairwise_loss(
+                    src, pair_w, pair_sums[0], num_masks, kernel_size=kernel_size,
+                    dilation=dilation, warmup_factor=warmup_factor))
+                losses[f"loss_pairwise{suffix}"] = pair_l[-1]
+        total = cfg.class_weight * torch.stack(ce_l).sum() + projection_weight * torch.stack(
+            proj_l).sum()
+        if use_pairwise:
+            total = total + pairwise_weight * torch.stack(pair_l).sum()
     return total, losses

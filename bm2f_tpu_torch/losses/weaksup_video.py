@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from bm2f_tpu_torch.losses.criterion import (
     SetCriterionConfig,
     _loss_labels,
+    count_targets,
     label_denominators,
 )
 from bm2f_tpu_torch.losses.weaksup import (
@@ -45,6 +46,7 @@ from bm2f_tpu_torch.parallel import data_size
 from bm2f_tpu_torch.losses.weaksup_criterion import _BOUNDS
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import PAD_COST
+from bm2f_tpu_torch.utils import tracing
 
 # ---------------------------------------------------------------------------
 # DINOv2 temporal pairs
@@ -140,7 +142,8 @@ def video_weaksup_matcher_costs(pred_logits: torch.Tensor, pred_masks: torch.Ten
     """(B, Q, G) costs: the class cost plus the projection cost (and the
     spatial pairwise cost when `cost_pairwise` > 0) of every frame, summed
     over the clip; `PAD_COST` on invalid targets. pred_masks (B, Q, T, h,
-    w)."""
+    w). Traced as the spans "costs.projection" and "costs.pairwise", a frame
+    each."""
     B, Q, T = pred_masks.shape[:3]
     K = pred_logits.shape[-1] - 1
     labels, valid = targets["labels"], targets["valid"]
@@ -156,13 +159,15 @@ def video_weaksup_matcher_costs(pred_logits: torch.Tensor, pred_masks: torch.Ten
         for t in range(T):
             box = targets["box_masks"][b, :, t]
             bounds = {k: targets[k][b, :, t] for k in _BOUNDS}
-            c = c + cost_projection * projection_cost_matrix(masks[b, :, t], box, bounds)
+            with tracing.span("costs.projection"):
+                c = c + cost_projection * projection_cost_matrix(masks[b, :, t], box, bounds)
             if cost_pairwise > 0.0:
                 cs = targets["color_similarity"][b, t]
-                c = c + cost_pairwise * pairwise_cost_matrix(
-                    masks[b, :, t], cs[None].expand(G, *cs.shape), box,
-                    color_thresh=color_thresh, kernel_size=kernel_size,
-                    dilation=dilation, warmup_factor=warmup_factor)
+                with tracing.span("costs.pairwise"):
+                    c = c + cost_pairwise * pairwise_cost_matrix(
+                        masks[b, :, t], cs[None].expand(G, *cs.shape), box,
+                        color_thresh=color_thresh, kernel_size=kernel_size,
+                        dilation=dilation, warmup_factor=warmup_factor)
         c_mask.append(c)
     C = cost_class * c_class + torch.stack(c_mask)
     return torch.where(valid[:, None, :], C, torch.full_like(C, PAD_COST))
@@ -182,7 +187,6 @@ def video_weaksup_set_criterion(
     dilation: int = 2,
     warmup_factor: float = 1.0,
     assign_fn: Callable[[torch.Tensor], torch.Tensor] = assign,
-    mark: Optional[Callable[[str], None]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The box-supervised video loss over the final and aux layers. targets
     as `target_prep.build_video_weaksup_targets` gives them: labels, valid
@@ -193,7 +197,7 @@ def video_weaksup_set_criterion(
     are there. Returns (total, {loss_ce, loss_mask_projection[,
     loss_mask_spatial_pairwise][, loss_mask_temporal_pairwise], ...,
     temp_pair_valid_prop}); the JAX function's `rng` is not taken (it
-    draws nothing). `mark` as in `set_criterion`."""
+    draws nothing). Traced as `criterion.set_criterion` is."""
     use_spat = "pairwise" in sup_type  # as JAX's: either pairwise loss turns it on
     use_temp = "temporal_pairwise" in sup_type and "temporal_pairs" in targets
     labels, valid = targets["labels"], targets["valid"]
@@ -202,74 +206,72 @@ def video_weaksup_set_criterion(
               for i in range(outputs["aux_logits"].shape[0])]
     layers.append((outputs["pred_logits"], outputs["pred_masks"]))
 
-    costs = torch.stack([
-        video_weaksup_matcher_costs(
-            logits, masks, targets, cost_class=cfg.class_weight,
-            cost_projection=projection_weight,
-            cost_pairwise=pairwise_weight if use_spat else 0.0,
-            color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
-            warmup_factor=warmup_factor)
-        for logits, masks in layers], 1)  # (B, L+1, Q, G)
-    if mark is not None:
-        mark("matcher_costs")
-    assignment = assign_fn(costs)  # (B, L+1, G)
-    if mark is not None:
-        mark("assign")
+    with tracing.span("train.matcher_costs"):
+        costs = torch.stack([
+            video_weaksup_matcher_costs(
+                logits, masks, targets, cost_class=cfg.class_weight,
+                cost_projection=projection_weight,
+                cost_pairwise=pairwise_weight if use_spat else 0.0,
+                color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
+                warmup_factor=warmup_factor)
+            for logits, masks in layers], 1)  # (B, L+1, Q, G)
+    with tracing.span("train.assign"):
+        assignment = assign_fn(costs)  # (B, L+1, G)
 
-    # the valid targets' rows (b, g), one host synchronise a step; each row
-    # is T frames
-    b_idx, g_idx = valid.nonzero(as_tuple=True)
-    n = b_idx.shape[0]
-    box_v = targets["box_masks"][b_idx, g_idx].reshape(n * T, h, w)
-    bounds_v = {k: targets[k][b_idx, g_idx].flatten(0, 1) for k in _BOUNDS}
-    ones_v = torch.ones(n * T, device=valid.device)
-    extra = []
-    if use_spat:
-        # the same edges in every layer: (n*T, h, w, K)
-        pair_w = pairwise_weights(targets["color_similarity"][b_idx].flatten(0, 1),
-                                  box_v, ones_v, color_thresh, torch.float32)
-        extra.append(pair_w.sum())
-    if use_temp:
-        pairs_v = targets["temporal_pairs"][b_idx, g_idx]  # (n, T-1, Kp, 4)
-        pv_v = targets["temporal_pairs_valid"][b_idx, g_idx]
-        extra.append(pv_v.to(torch.float32).sum())
-    num_masks, ce_labels, extra = label_denominators(layers, labels, valid, assignment,
-                                                     cfg, *extra)
-    pair_sum = extra[0] if use_spat else None
-    temp_sum = extra[-1] if use_temp else None
-
-    losses: Dict[str, torch.Tensor] = {}
-    ce_l, proj_l, pair_l, temp_l = [], [], [], []
-    for i, (logits, masks) in enumerate(layers):
-        asg = assignment[:, i]
-        ce_l.append(_loss_labels(logits, *ce_labels[i]))
-        src = masks[b_idx, asg[b_idx, g_idx]].float()  # (n, T, h, w)
-        src_ft = src.reshape(n * T, h, w)
-        proj_l.append(projection_loss(src_ft, box_v, bounds_v, ones_v, num_masks * T))
-        suffix = "" if i == len(layers) - 1 else f"_{i}"
-        losses[f"loss_ce{suffix}"] = ce_l[-1]
-        losses[f"loss_mask_projection{suffix}"] = proj_l[-1]
+    with tracing.span("train.losses"):
+        # the valid targets' rows (b, g), one host synchronise a step; each row
+        # is T frames
+        b_idx, g_idx = valid.nonzero(as_tuple=True)
+        n = b_idx.shape[0]
+        count_targets(valid, n)
+        box_v = targets["box_masks"][b_idx, g_idx].reshape(n * T, h, w)
+        bounds_v = {k: targets[k][b_idx, g_idx].flatten(0, 1) for k in _BOUNDS}
+        ones_v = torch.ones(n * T, device=valid.device)
+        extra = []
         if use_spat:
-            pair_l.append(weighted_pairwise_loss(
-                src_ft, pair_w, pair_sum, num_masks * T, kernel_size=kernel_size,
-                dilation=dilation, warmup_factor=warmup_factor))
-            losses[f"loss_mask_spatial_pairwise{suffix}"] = pair_l[-1]
+            # the same edges in every layer: (n*T, h, w, K)
+            pair_w = pairwise_weights(targets["color_similarity"][b_idx].flatten(0, 1),
+                                      box_v, ones_v, color_thresh, torch.float32)
+            extra.append(pair_w.sum())
         if use_temp:
-            temp_l.append(temporal_pairwise_loss(src, pairs_v, pv_v, warmup_factor,
-                                                 valid_sum=temp_sum))
-            losses[f"loss_mask_temporal_pairwise{suffix}"] = temp_l[-1]
-    total = (cfg.class_weight * torch.stack(ce_l).sum()
-             + projection_weight * torch.stack(proj_l).sum())
-    if use_spat:
-        total = total + pairwise_weight * torch.stack(pair_l).sum()
-    if use_temp:
-        total = total + temporal_pairwise_weight * torch.stack(temp_l).sum()
-        # the share of DINO matches that survive (reference
-        # video_maskformer_model.py:361-369 loss_pos_temp_pair_prop): this
-        # rank's share of the global batch's mean, which the trainer's sum
-        # of the ranks' metrics completes (every rank holds as many pairs)
-        losses["temp_pair_valid_prop"] = (targets["temporal_pairs_valid"].float().mean()
-                                          / data_size())
-    if mark is not None:
-        mark("losses")
+            pairs_v = targets["temporal_pairs"][b_idx, g_idx]  # (n, T-1, Kp, 4)
+            pv_v = targets["temporal_pairs_valid"][b_idx, g_idx]
+            extra.append(pv_v.to(torch.float32).sum())
+        num_masks, ce_labels, extra = label_denominators(layers, labels, valid, assignment,
+                                                         cfg, *extra)
+        pair_sum = extra[0] if use_spat else None
+        temp_sum = extra[-1] if use_temp else None
+
+        losses: Dict[str, torch.Tensor] = {}
+        ce_l, proj_l, pair_l, temp_l = [], [], [], []
+        for i, (logits, masks) in enumerate(layers):
+            asg = assignment[:, i]
+            ce_l.append(_loss_labels(logits, *ce_labels[i]))
+            src = masks[b_idx, asg[b_idx, g_idx]].float()  # (n, T, h, w)
+            src_ft = src.reshape(n * T, h, w)
+            proj_l.append(projection_loss(src_ft, box_v, bounds_v, ones_v, num_masks * T))
+            suffix = "" if i == len(layers) - 1 else f"_{i}"
+            losses[f"loss_ce{suffix}"] = ce_l[-1]
+            losses[f"loss_mask_projection{suffix}"] = proj_l[-1]
+            if use_spat:
+                pair_l.append(weighted_pairwise_loss(
+                    src_ft, pair_w, pair_sum, num_masks * T, kernel_size=kernel_size,
+                    dilation=dilation, warmup_factor=warmup_factor))
+                losses[f"loss_mask_spatial_pairwise{suffix}"] = pair_l[-1]
+            if use_temp:
+                temp_l.append(temporal_pairwise_loss(src, pairs_v, pv_v, warmup_factor,
+                                                     valid_sum=temp_sum))
+                losses[f"loss_mask_temporal_pairwise{suffix}"] = temp_l[-1]
+        total = (cfg.class_weight * torch.stack(ce_l).sum()
+                 + projection_weight * torch.stack(proj_l).sum())
+        if use_spat:
+            total = total + pairwise_weight * torch.stack(pair_l).sum()
+        if use_temp:
+            total = total + temporal_pairwise_weight * torch.stack(temp_l).sum()
+            # the share of DINO matches that survive (reference
+            # video_maskformer_model.py:361-369 loss_pos_temp_pair_prop): this
+            # rank's share of the global batch's mean, which the trainer's sum
+            # of the ranks' metrics completes (every rank holds as many pairs)
+            losses["temp_pair_valid_prop"] = (targets["temporal_pairs_valid"].float().mean()
+                                              / data_size())
     return total, losses

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from bm2f_tpu_torch.ops import cuda_build
+from bm2f_tpu_torch.utils import tracing
 
 log = logging.getLogger(__name__)
 
@@ -70,8 +71,15 @@ def solve_host(costs: np.ndarray) -> np.ndarray:
 
 def assign(costs: torch.Tensor) -> torch.Tensor:
     """(..., Q, G) costs on any device -> (..., G) query index of every
-    target, on the costs' device. One device-to-host copy of all costs."""
-    return torch.from_numpy(solve_host(costs.detach().float().cpu().numpy())).to(costs.device)
+    target, on the costs' device. One device-to-host copy of all costs.
+    Traced as the spans "assign.to_host", "assign.solve" and
+    "assign.to_device"."""
+    with tracing.span("assign.to_host"):
+        host = costs.detach().float().cpu().numpy()
+    with tracing.span("assign.solve"):
+        rows = solve_host(host)
+    with tracing.span("assign.to_device"):
+        return torch.from_numpy(rows).to(costs.device)
 
 
 @torch.no_grad()

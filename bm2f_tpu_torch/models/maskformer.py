@@ -36,6 +36,7 @@ from bm2f_tpu_torch.models.resnet import (
 from bm2f_tpu_torch.models.swin import SwinTransformer
 from bm2f_tpu_torch.models.transformer_decoder import MultiScaleMaskedTransformerDecoder
 from bm2f_tpu_torch.ops import resize_bilinear
+from bm2f_tpu_torch.utils import tracing
 
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -108,13 +109,15 @@ class MaskFormerHead(nn.Module):
                 dtype=dtype)
 
     def forward(self, features: Dict[str, torch.Tensor], deform_impl: str = "auto"):
-        mask_features, transformer_feature, ms_feats = self.pixel_decoder(
-            features, deform_impl)
-        if self.standard:
-            x = transformer_feature if self.reads_transformer_feature else features["res5"]
-            out = self.predictor(x.to(self.predictor.dtype), mask_features)
-        else:
-            out = self.predictor(ms_feats, mask_features)
+        with tracing.span("net.pixel_decoder"):
+            mask_features, transformer_feature, ms_feats = self.pixel_decoder(
+                features, deform_impl)
+        with tracing.span("net.decoder"):
+            if self.standard:
+                x = transformer_feature if self.reads_transformer_feature else features["res5"]
+                out = self.predictor(x.to(self.predictor.dtype), mask_features)
+            else:
+                out = self.predictor(ms_feats, mask_features)
         out["mask_features"] = mask_features.permute(0, 2, 3, 1)  # NHWC, as JAX
         return out
 
@@ -142,9 +145,13 @@ class MaskFormer(nn.Module):
     def forward(self, images: torch.Tensor,
                 deform_impl: str = "auto") -> Dict[str, torch.Tensor]:
         """deform_impl="plain" forces the plain deformable-attention version
-        on the card, for parity checks against the kernel."""
+        on the card, for parity checks against the kernel. Traced
+        (`utils.tracing`) as "net.backbone", "net.pixel_decoder" and
+        "net.decoder"."""
         x = images.float().permute(0, 3, 1, 2).contiguous()
-        return self.sem_seg_head(self.backbone(x), deform_impl)
+        with tracing.span("net.backbone"):
+            features = self.backbone(x)
+        return self.sem_seg_head(features, deform_impl)
 
     def cast_weights_for_inference_(self) -> "MaskFormer":
         """Casts each part's weights, once, to the dtype the part computes

@@ -24,6 +24,7 @@ from bm2f_tpu_torch.models.maskformer import (
     semantic_inference,
 )
 from bm2f_tpu_torch.ops import resize_bilinear
+from bm2f_tpu_torch.utils import tracing
 from bm2f_tpu_torch.utils.precision import f32_scope
 
 
@@ -60,32 +61,44 @@ class Predictor:
         the three inference modes on the f32 predictions (in either model
         dtype); the outputs on the host are f32. An f32 model computes in
         f32 (no TF32), whatever the global flags say. The panoptic fusion
-        treats every class as a thing, as the root `Predictor` does."""
-        H, W = image.shape[:2]
-        d = self.cfg.model.size_divisibility
-        ph, pw = (H + d - 1) // d * d, (W + d - 1) // d * d
-        x = torch.zeros((1, ph, pw, 3), dtype=torch.float32)
-        x[0, :H, :W] = torch.from_numpy(np.asarray(image, np.float32))
-        x = normalize_images(x.to(self.device), self.cfg.model)
-        K = self.cfg.model.num_classes
-        with f32_scope(self.cfg.model.dtype):
-            out = self.model(x)
-            logits = out["pred_logits"][0]
-            masks = resize_bilinear(out["pred_masks"][0], ph, pw)[:, :H, :W]
-            sem = semantic_inference(logits, masks)
-            inst = instance_inference(logits, masks, num_classes=K, topk=100)
-            pan = panoptic_inference(
-                logits, masks, num_classes=K, thing_mask=tuple([True] * K),
-                object_mask_threshold=self.cfg.model.test.object_mask_threshold,
-                overlap_threshold=self.cfg.model.test.overlap_threshold,
-            )
-        seg_map, seg_info = relabel_panoptic(
-            {k: v.cpu().numpy() for k, v in pan.items()})
-        return {
-            "semantic": sem.cpu().numpy(),
-            "instances": {k: v.cpu().numpy() for k, v in inst.items()},
-            "panoptic": (seg_map, seg_info),
-        }
+        treats every class as a thing, as the root `Predictor` does.
+
+        Traced (`utils.tracing`) as the root span "serve.request" with the
+        children "serve.prepare" (padding, the copy in, normalisation),
+        "serve.network", "serve.modes" (the resize and the three modes),
+        "serve.to_host" (every copy of the result to the host; counter
+        "serve.to_host_bytes") and "serve.relabel"."""
+        with tracing.span("serve.request", self.device):
+            with tracing.span("serve.prepare"):
+                H, W = image.shape[:2]
+                d = self.cfg.model.size_divisibility
+                ph, pw = (H + d - 1) // d * d, (W + d - 1) // d * d
+                x = torch.zeros((1, ph, pw, 3), dtype=torch.float32)
+                x[0, :H, :W] = torch.from_numpy(np.asarray(image, np.float32))
+                x = normalize_images(x.to(self.device), self.cfg.model)
+            K = self.cfg.model.num_classes
+            with f32_scope(self.cfg.model.dtype):
+                with tracing.span("serve.network"):
+                    out = self.model(x)
+                with tracing.span("serve.modes"):
+                    logits = out["pred_logits"][0]
+                    masks = resize_bilinear(out["pred_masks"][0], ph, pw)[:, :H, :W]
+                    sem = semantic_inference(logits, masks)
+                    inst = instance_inference(logits, masks, num_classes=K, topk=100)
+                    pan = panoptic_inference(
+                        logits, masks, num_classes=K, thing_mask=tuple([True] * K),
+                        object_mask_threshold=self.cfg.model.test.object_mask_threshold,
+                        overlap_threshold=self.cfg.model.test.overlap_threshold,
+                    )
+            with tracing.span("serve.to_host"):
+                sem = sem.cpu().numpy()
+                inst = {k: v.cpu().numpy() for k, v in inst.items()}
+                pan = {k: v.cpu().numpy() for k, v in pan.items()}
+                tracing.count("serve.to_host_bytes", sem.nbytes + sum(
+                    a.nbytes for a in (*inst.values(), *pan.values())))
+            with tracing.span("serve.relabel"):
+                panoptic = relabel_panoptic(pan)
+        return {"semantic": sem, "instances": inst, "panoptic": panoptic}
 
     @staticmethod
     def visualize(image: np.ndarray, out: Dict) -> np.ndarray:

@@ -6,10 +6,11 @@
 Builds `Predictor("coco_instance_r50")` at full width with seeded random
 weights (deformable projections perturbed as in `chip_smoke.py`, so sampling
 is not on the init's grid), answers one warm-up request, then:
-  1. times each step of `Predictor.predict` with a synchronise after it
-     (median over --repeats requests): pad + upload, backbone, pixel
-     decoder, predictor, mask resize, semantic, instance, panoptic, copy to
-     the host, panoptic relabel;
+  1. times each step of `Predictor.infer` from its spans (`utils.tracing`,
+     on the device's clock; median over --repeats requests): padding and the
+     copy in, backbone, pixel decoder, predictor, the resize and the three
+     inference modes, the copy to the host, the panoptic relabelling (on the
+     host's clock);
   2. profiles one request with `torch.profiler`, writes the op tables to
      --out (default output/profile_request.txt) and prints the device-busy
      share of the profiled request and of the unprofiled median;
@@ -34,15 +35,8 @@ import numpy as np
 import torch
 
 from bm2f_tpu_torch.config import parse_override
-from bm2f_tpu_torch.evaluation.panoptic_post import relabel_panoptic
-from bm2f_tpu_torch.models.maskformer import (
-    instance_inference,
-    normalize_images,
-    panoptic_inference,
-    semantic_inference,
-)
-from bm2f_tpu_torch.ops import resize_bilinear
 from bm2f_tpu_torch.predict import Predictor
+from bm2f_tpu_torch.utils import tracing
 
 
 def perturb_deformable(model, seed: int = 1) -> None:
@@ -56,53 +50,22 @@ def perturb_deformable(model, seed: int = 1) -> None:
                 lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen) * std)
 
 
-def timed_request(pred: Predictor, image: np.ndarray) -> dict:
-    """`Predictor.predict`'s steps, each followed by a synchronise."""
-    cfg, dev, model = pred.cfg, pred.device, pred.model
-    t = {}
-    clock = [time.perf_counter()]
+# the step table: (row, the span of `Predictor.infer` it reads, its clock)
+STEPS = (("prepare", "serve.prepare", "device_ms"), ("backbone", "net.backbone", "device_ms"),
+         ("pixel_decoder", "net.pixel_decoder", "device_ms"),
+         ("predictor", "net.decoder", "device_ms"), ("modes", "serve.modes", "device_ms"),
+         ("to_host", "serve.to_host", "device_ms"), ("relabel", "serve.relabel", "host_ms"))
 
-    def mark(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        t[name] = (now - clock[0]) * 1e3
-        clock[0] = now
 
-    with torch.no_grad():
-        H, W = image.shape[:2]
-        d = cfg.model.size_divisibility
-        ph, pw = (H + d - 1) // d * d, (W + d - 1) // d * d
-        x = torch.zeros((1, ph, pw, 3), dtype=torch.float32)
-        x[0, :H, :W] = torch.from_numpy(image.astype(np.float32))
-        x = normalize_images(x.to(dev), cfg.model).permute(0, 3, 1, 2).contiguous()
-        mark("upload")
-        feats = model.backbone(x)
-        mark("backbone")
-        mf, _, ms = model.sem_seg_head.pixel_decoder(feats)
-        mark("pixel_decoder")
-        out = model.sem_seg_head.predictor(ms, mf)
-        mark("predictor")
-        logits = out["pred_logits"][0]
-        masks = resize_bilinear(out["pred_masks"][0], ph, pw)[:, :H, :W]
-        mark("mask_resize")
-        K = cfg.model.num_classes
-        sem = semantic_inference(logits, masks)
-        mark("semantic")
-        inst = instance_inference(logits, masks, num_classes=K, topk=100)
-        mark("instance")
-        pan = panoptic_inference(
-            logits, masks, num_classes=K, thing_mask=tuple([True] * K),
-            object_mask_threshold=cfg.model.test.object_mask_threshold,
-            overlap_threshold=cfg.model.test.overlap_threshold)
-        mark("panoptic")
-        sem_h = sem.cpu().numpy()
-        inst_h = {k: v.cpu().numpy() for k, v in inst.items()}
-        pan_h = {k: v.cpu().numpy() for k, v in pan.items()}
-        mark("to_host")
-        _, info = relabel_panoptic(pan_h)
-        mark("relabel")
-    del sem_h, inst_h
-    t["segments"] = len(info)
+def request_steps(pred: Predictor, image: np.ndarray) -> dict:
+    """One `Predictor.infer` traced (`utils.tracing`): each step's ms from
+    its span, on the device's clock (the relabelling, host work, on the
+    host's), and the segments found."""
+    with tracing.collect():
+        out = pred.infer(image)
+    spans = tracing.records()[-1]["spans"]
+    t = {row: sum(s[clock] for s in spans if s["name"] == name) for row, name, clock in STEPS}
+    t["segments"] = len(out["panoptic"][1])
     return t
 
 
@@ -149,8 +112,8 @@ def main(argv=None) -> int:
     # repeats the time of the kernels it launched
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA)
-    # the profiler slows the host; the median of the timed requests above
-    # (a synchronise after each step) is the request without it
+    # the profiler slows the host; the medians of the traced requests above
+    # (their spans add no synchronise) are the request without it
     print(f"profiled_request wall_ms={wall:.2f} device_busy_ms={dev_us / 1e3:.2f} "
           f"busy_share_of_profiled_request={dev_us / 1e3 / wall:.3f} "
           f"busy_share_of_unprofiled_request={dev_us / 1e3 / sum(med.values()):.3f}")
@@ -166,7 +129,7 @@ def main(argv=None) -> int:
         image = make_image(size)
         torch.cuda.synchronize()
         reserved = torch.cuda.memory_reserved()
-        cold = timed_request(pred, image)
+        cold = request_steps(pred, image)
         grown = (torch.cuda.memory_reserved() - reserved) / 2**20
         cold.pop("segments")
         warm, _ = warm_median(pred, image, args.repeats)
@@ -185,7 +148,7 @@ def make_image(size: str) -> np.ndarray:
 
 def warm_median(pred: Predictor, image: np.ndarray, repeats: int):
     """({step: median ms over `repeats` timed requests}, segments found)."""
-    runs = [timed_request(pred, image) for _ in range(repeats)]
+    runs = [request_steps(pred, image) for _ in range(repeats)]
     med = {k: statistics.median(r[k] for r in runs) for k in runs[0] if k != "segments"}
     return med, runs[0]["segments"]
 

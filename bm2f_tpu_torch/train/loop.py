@@ -30,6 +30,7 @@ the ranks of a model group train the same rows.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Sequence
@@ -38,6 +39,7 @@ import torch
 
 from bm2f_tpu_torch.parallel import local_rows, rank
 from bm2f_tpu_torch.train.trainer import synthetic_batch
+from bm2f_tpu_torch.utils import tracing
 
 # how many dispatched-but-unpulled steps may be in flight (train.py:37)
 ASYNC_DEPTH = 4
@@ -83,12 +85,15 @@ def dispatch_eval(cfg, model, dataset: str) -> Dict[str, float]:
 class StepProfiler:
     """A `torch.profiler` trace of the iterations `PROFILE_STEPS` (and of
     fewer when the run ends first), written to
-    `<directory>/rank<r>.pt.trace.json` (Chrome's trace format)."""
+    `<directory>/rank<r>.pt.trace.json` (Chrome's trace format), and the
+    traced steps' spans and counters (`utils.tracing.records`) beside it, as
+    `rank<r>.spans.json`."""
 
     def __init__(self, directory: str, device: torch.device):
         self.directory = directory
         self.device = device
         self.prof = None
+        self.since = -1  # the last root traced before the profile
 
     def at(self, it: int) -> None:
         """Called with the iteration about to run and after the last."""
@@ -96,6 +101,7 @@ class StepProfiler:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.since = max((r["id"] for r in tracing.records()), default=-1)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.start()
         elif it >= PROFILE_STEPS[1]:
@@ -110,6 +116,8 @@ class StepProfiler:
         os.makedirs(self.directory, exist_ok=True)
         self.prof.export_chrome_trace(
             os.path.join(self.directory, f"rank{rank()}.pt.trace.json"))
+        with open(os.path.join(self.directory, f"rank{rank()}.spans.json"), "w") as f:
+            json.dump([r for r in tracing.records() if r["id"] > self.since], f)
         self.prof = None
 
 

@@ -66,6 +66,7 @@ weights, as JAX evaluates `device_get(state.params)`.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import time
@@ -92,10 +93,15 @@ from bm2f_tpu_torch.parallel import global_sum, init_mesh
 from bm2f_tpu_torch.parallel import tp as tparallel
 from bm2f_tpu_torch.video import build_video_model
 from bm2f_tpu_torch.train.optim import AdamW
+from bm2f_tpu_torch.utils import tracing
 from bm2f_tpu_torch.utils.precision import deterministic_scope, f32_scope
 
 log = logging.getLogger(__name__)
 
+# the stages of a train step: each child span of "train.step" -> its `mark` name
+STAGES = {"train.forward": "forward", "train.matcher_costs": "matcher_costs",
+          "train.assign": "assign", "train.losses": "losses",
+          "train.backward": "backward", "train.optimizer": "optimizer"}
 # the values of `model.loss.sup_type` (config.LossConfig) for each task
 IMAGE_SUP_TYPES = ("mask", "mask_projection", "mask_projection_and_pairwise")
 VIDEO_SUP_TYPES = ("mask", "mask_projection", "mask_projection_and_spatial_pairwise",
@@ -166,6 +172,15 @@ class StageTimer:
         now = time.perf_counter()
         self.ms[stage] = self.ms.get(stage, 0.0) + (now - self._t) * 1e3
         self._t = now
+
+
+def _stage_marks(mark: Callable[[str], None]) -> Callable[[str], None]:
+    """`tracing.collect`'s on_end: `mark(stage)` as each stage's span ends."""
+    def on_end(name: str) -> None:
+        stage = STAGES.get(name)
+        if stage is not None:
+            mark(stage)
+    return on_end
 
 
 def sum_gradients(group, bucket):
@@ -269,7 +284,6 @@ class Trainer:
     def loss(self, batch: Mapping[str, torch.Tensor],
              points: Optional[Mapping[str, torch.Tensor]] = None,
              deform_impl: str = "auto",
-             mark: Optional[Callable[[str], None]] = None,
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Forward + criterion: (total_loss, losses). `points` as
         `draw_points` gives them (drawn from the trainer's generator when
@@ -277,22 +291,21 @@ class Trainer:
         plain deformable attention (a parity reference for the kernels).
         The weak criterion's pairwise warmup and pixel threshold are read at
         `step_count`, before the step's update, as JAX reads `state.step`."""
-        x = normalize_images(batch["images"], self.cfg.model)
-        out = self.forward(x, deform_impl=deform_impl)
-        if mark is not None:
-            mark("forward")
+        with tracing.span("train.forward"):
+            x = normalize_images(batch["images"], self.cfg.model)
+            out = self.forward(x, deform_impl=deform_impl)
         if self.cfg.model.loss.sup_type != "mask":
             weak_loss = self._weak_video_loss if self.video else self._weak_loss
-            return weak_loss(out, batch, mark)
+            return weak_loss(out, batch)
         frames = out["pred_masks"].shape[2] if self.video else 1
         if points is None:
             points = draw_points(self.ccfg, out["aux_logits"].shape[0] + 1,
                                  out["pred_logits"].shape[0], self.generator, frames)
         targets = {k: batch[k] for k in ("labels", "masks", "valid")}
         criterion = video_set_criterion if self.video else set_criterion
-        return criterion(out, targets, self.ccfg, points, mark, self.assign_fn)
+        return criterion(out, targets, self.ccfg, points, self.assign_fn)
 
-    def _weak_video_loss(self, out, batch, mark):
+    def _weak_video_loss(self, out, batch):
         lc, weak = self.cfg.model.loss, self.cfg.model.loss.weak
         pw = weak.pairwise
         targets = build_video_weaksup_targets(
@@ -304,9 +317,9 @@ class Trainer:
             temporal_pairwise_weight=weak.temporal_pairwise_weight,
             color_thresh=pw.color_thresh, kernel_size=pw.size, dilation=pw.dilation,
             warmup_factor=pairwise_warmup_factor(self.step_count, pw.warmup_iters),
-            assign_fn=self.assign_fn, mark=mark)
+            assign_fn=self.assign_fn)
 
-    def _weak_loss(self, out, batch, mark):
+    def _weak_loss(self, out, batch):
         lc, weak = self.cfg.model.loss, self.cfg.model.loss.weak
         pw = weak.pairwise
         targets = build_weaksup_targets(batch["images"], batch["labels"], batch["masks"],
@@ -321,28 +334,34 @@ class Trainer:
             projection_weight=weak.projection_weight, pairwise_weight=weak.pairwise_weight,
             color_thresh=pw.color_thresh, kernel_size=pw.size, dilation=pw.dilation,
             warmup_factor=pairwise_warmup_factor(self.step_count, pw.warmup_iters),
-            assign_fn=self.assign_fn, mask_update_pix_thr=pix_thr, mark=mark)
+            assign_fn=self.assign_fn, mask_update_pix_thr=pix_thr)
 
     def step(self, batch: Mapping[str, torch.Tensor],
              points: Optional[Mapping[str, torch.Tensor]] = None,
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         """One optimizer step. Returns every loss, total_loss and grad_norm
         as 0-d device tensors, the global batch's in a process group.
-        `mark(stage)`, when given, is called after forward, matcher_costs,
-        assign, losses, backward and optimizer. Deterministic and, for an
-        f32 model, in f32, whatever the global flags say."""
-        with f32_scope(self.cfg.model.dtype), deterministic_scope():
-            self.optimizer.zero_grad()
-            total, losses = self.loss(batch, points, mark=mark)
-            total.backward()
-            if mark is not None:
-                mark("backward")
-            grad_norm = self.optimizer.step()
-            if mark is not None:
-                mark("optimizer")
-        # the global batch's losses: the sum of the ranks' terms
-        keys = [*losses, "total_loss"]
-        summed = global_sum(torch.stack([*losses.values(), total]).detach())
+        Deterministic and, for an f32 model, in f32, whatever the global
+        flags say.
+
+        Traced (`utils.tracing`) as the root span "train.step" with the
+        children of `STAGES` in order (the criteria open the middle three).
+        `mark(stage)`, when given, turns tracing on for the step and is
+        called as each of them ends, with its stage name ("forward",
+        "matcher_costs", "assign", "losses", "backward", "optimizer")."""
+        traced = (tracing.collect(_stage_marks(mark)) if mark is not None
+                  else contextlib.nullcontext())
+        with traced, tracing.span("train.step", self.device):
+            with f32_scope(self.cfg.model.dtype), deterministic_scope():
+                self.optimizer.zero_grad()
+                total, losses = self.loss(batch, points)
+                with tracing.span("train.backward"):
+                    total.backward()
+                with tracing.span("train.optimizer"):
+                    grad_norm = self.optimizer.step()
+            # the global batch's losses: the sum of the ranks' terms
+            keys = [*losses, "total_loss"]
+            summed = global_sum(torch.stack([*losses.values(), total]).detach())
         metrics = dict(zip(keys, summed.unbind(0)))
         metrics["grad_norm"] = grad_norm
         return metrics

@@ -21,6 +21,7 @@ import torch
 from bm2f_tpu_torch.config import Config
 from bm2f_tpu_torch.models.layers import init_parameters
 from bm2f_tpu_torch.models.maskformer import MaskFormer, MaskFormerHead
+from bm2f_tpu_torch.utils import tracing
 from bm2f_tpu_torch.video.video_decoder import VideoMultiScaleMaskedTransformerDecoder
 
 
@@ -46,10 +47,14 @@ class VideoMaskFormer(MaskFormer):
         B, T = images.shape[:2]
         x = images.float().flatten(0, 1).permute(0, 3, 1, 2).contiguous()
         head = self.sem_seg_head
-        mask_features, _, ms_feats = head.pixel_decoder(self.backbone(x), deform_impl)
+        with tracing.span("net.backbone"):
+            features = self.backbone(x)
+        with tracing.span("net.pixel_decoder"):
+            mask_features, _, ms_feats = head.pixel_decoder(features, deform_impl)
         ms_feats = [f.reshape(B, T, *f.shape[1:]) for f in ms_feats]
         mask_features = mask_features.reshape(B, T, *mask_features.shape[1:])
-        out = head.predictor(ms_feats, mask_features, frame_valid)
+        with tracing.span("net.decoder"):
+            out = head.predictor(ms_feats, mask_features, frame_valid)
         out["mask_features"] = mask_features.permute(0, 1, 3, 4, 2)  # as JAX
         return out
 

@@ -155,15 +155,20 @@ def test_world2_eval_only_gathers_both_ranks_images(world2_run, data_root, capsy
 
 def test_profile_traces_steps_10_to_15(tmp_path):
     """`--profile`: a `torch.profiler` trace of steps 10-15 in
-    <output>/profile, in Chrome's format, with the step's ops in it."""
+    <output>/profile, in Chrome's format, with the step's ops and spans in
+    it, and those steps' spans beside it."""
     over = {**TINY, "model.pixel_decoder.transformer_enc_layers": 1,
             "model.decoder.dec_layers": 1, "model.loss.train_num_points": 16}
     args = ["--config", CONFIG, "--device", "cpu", "--synthetic", "--size", "32", "--batch",
             "1", "--instances", "2", "--output", str(tmp_path), "--max-iter", "16",
             "--profile"] + _sets(over)
     assert train_main.main(args) == 0
-    (trace,) = (tmp_path / "profile").iterdir()
-    assert trace.name == "rank0.pt.trace.json"
+    trace, spans = sorted((tmp_path / "profile").iterdir(), key=lambda p: p.name)
+    assert (trace.name, spans.name) == ("rank0.pt.trace.json", "rank0.spans.json")
     names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]}
     assert any(n.startswith("aten::convolution") for n in names)
     assert sum(n.startswith("aten::_foreach_add_") for n in names) >= 1
+    assert {"train.step", "train.backward", "assign.solve"} <= names
+    roots = json.loads(spans.read_text())
+    assert [r["name"] for r in roots] == ["train.step"] * 5
+    assert all(r["counters"]["targets.slots"] == 2 for r in roots)
