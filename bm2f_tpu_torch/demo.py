@@ -104,23 +104,6 @@ def draw_panoptic(img, seg_map, segments, class_names=None):
     return np.asarray(pil)
 
 
-def _copy_to_host(tensors: Dict, device):
-    """Enqueues each result's copy into pinned host memory behind the
-    launches that compute it and records an event (on the card; on the CPU
-    the tensors are already there). The caller waits on the event only, so
-    the next image's forward, enqueued after the copies, runs while the host
-    draws this one; a plain `.cpu()` would wait for it too."""
-    import torch
-
-    if device.type != "cuda":
-        return tensors, None
-    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
-            for k, v in tensors.items()}
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
-
-
 def run_demo(cfg, model, paths: Sequence[str], output: str, task: str = "instance",
              confidence: float = 0.5, depth: int = 2) -> Dict:
     """Writes `<output>/<name>.viz.png` for each path; returns {"written":
@@ -144,6 +127,7 @@ def run_demo(cfg, model, paths: Sequence[str], output: str, task: str = "instanc
     )
     from bm2f_tpu_torch.ops import resize_bilinear
     from bm2f_tpu_torch.utils.async_predictor import AsyncPredictor
+    from bm2f_tpu_torch.utils.host_copy import to_host
     from bm2f_tpu_torch.utils.precision import f32_scope
 
     device = next(model.parameters()).device
@@ -181,7 +165,7 @@ def run_demo(cfg, model, paths: Sequence[str], output: str, task: str = "instanc
                     overlap_threshold=cfg.model.test.overlap_threshold)
             else:
                 res = instance_inference(logits, masks, num_classes=K, topk=100)
-        res, done = _copy_to_host(res, device)
+        res, done = to_host(res, device)
         stage_s["predict"] += time.perf_counter() - t0
         return inp, res, done
 

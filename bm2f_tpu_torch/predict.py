@@ -24,7 +24,7 @@ from bm2f_tpu_torch.models.maskformer import (
     semantic_inference,
 )
 from bm2f_tpu_torch.ops import resize_bilinear
-from bm2f_tpu_torch.utils import tracing
+from bm2f_tpu_torch.utils import host_copy, tracing
 from bm2f_tpu_torch.utils.precision import f32_scope
 
 
@@ -63,19 +63,38 @@ class Predictor:
         f32 (no TF32), whatever the global flags say. The panoptic fusion
         treats every class as a thing, as the root `Predictor` does.
 
+        The image crosses to the device in its own dtype if it is uint8
+        (else as f32) and is padded and cast there. On the card every copy
+        across the host link goes through pinned memory from PyTorch's
+        caching host allocator: the returned arrays are views of pinned host
+        tensors, whose blocks go back to the allocator's cache only when the
+        caller drops the result, so no result shares memory with a later
+        request's.
+
         Traced (`utils.tracing`) as the root span "serve.request" with the
-        children "serve.prepare" (padding, the copy in, normalisation),
+        children "serve.prepare" (the copy in, padding, normalisation),
         "serve.network", "serve.modes" (the resize and the three modes),
-        "serve.to_host" (every copy of the result to the host; counter
-        "serve.to_host_bytes") and "serve.relabel"."""
+        "serve.to_host" (every copy of the result to the host, waited for
+        inside the span; counter "serve.to_host_bytes") and "serve.relabel".
+        The counter "serve.pinned_new_blocks" is the number of pinned blocks
+        the request allocated rather than took from the cache (0 off the
+        card)."""
         with tracing.span("serve.request", self.device):
+            # read only while traced, so that the untraced path adds nothing;
+            # off the card nothing is pinned
+            traced = tracing.enabled()
+            pinned = traced and self.device.type == "cuda"
+            allocated = torch.cuda.host_memory_stats()["num_host_alloc"] if pinned else 0
             with tracing.span("serve.prepare"):
+                image = np.asarray(image)
+                if image.dtype != np.uint8:
+                    image = image.astype(np.float32, copy=False)
                 H, W = image.shape[:2]
                 d = self.cfg.model.size_divisibility
                 ph, pw = (H + d - 1) // d * d, (W + d - 1) // d * d
-                x = torch.zeros((1, ph, pw, 3), dtype=torch.float32)
-                x[0, :H, :W] = torch.from_numpy(np.asarray(image, np.float32))
-                x = normalize_images(x.to(self.device), self.cfg.model)
+                x = torch.zeros((1, ph, pw, 3), dtype=torch.float32, device=self.device)
+                x[0, :H, :W] = host_copy.to_device(image, self.device)
+                x = normalize_images(x, self.cfg.model)
             K = self.cfg.model.num_classes
             with f32_scope(self.cfg.model.dtype):
                 with tracing.span("serve.network"):
@@ -91,11 +110,18 @@ class Predictor:
                         overlap_threshold=self.cfg.model.test.overlap_threshold,
                     )
             with tracing.span("serve.to_host"):
-                sem = sem.cpu().numpy()
-                inst = {k: v.cpu().numpy() for k, v in inst.items()}
-                pan = {k: v.cpu().numpy() for k, v in pan.items()}
+                host, done = host_copy.to_host({"sem": sem, "inst": inst, "pan": pan},
+                                               self.device)
+                if done is not None:
+                    done.synchronize()
+                sem = host["sem"].numpy()
+                inst = {k: v.numpy() for k, v in host["inst"].items()}
+                pan = {k: v.numpy() for k, v in host["pan"].items()}
                 tracing.count("serve.to_host_bytes", sem.nbytes + sum(
                     a.nbytes for a in (*inst.values(), *pan.values())))
+                if traced:
+                    now = torch.cuda.host_memory_stats()["num_host_alloc"] if pinned else 0
+                    tracing.count("serve.pinned_new_blocks", now - allocated)
             with tracing.span("serve.relabel"):
                 panoptic = relabel_panoptic(pan)
         return {"semantic": sem, "instances": inst, "panoptic": panoptic}

@@ -141,7 +141,8 @@ def test_infer_spans_count_the_bytes_to_the_host_and_change_no_output(predictor,
     net = [s["name"] for s in root["spans"]].index("serve.network")
     assert children(root, net) == ["net.backbone", "net.pixel_decoder", "net.decoder"]
     copied = [on["semantic"], *on["instances"].values(), *seen["pan"].values()]
-    assert root["counters"] == {"serve.to_host_bytes": sum(a.nbytes for a in copied)}
+    assert root["counters"] == {"serve.to_host_bytes": sum(a.nbytes for a in copied),
+                                "serve.pinned_new_blocks": 0}
     np.testing.assert_array_equal(on["semantic"], off["semantic"])
     assert on["instances"].keys() == off["instances"].keys()
     for k, v in off["instances"].items():
