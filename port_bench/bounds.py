@@ -18,9 +18,12 @@ that falls inside its level (the kernels skip the others), at the f32 rate
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Mapping, Sequence, Tuple
 
 import torch
+
+from port_bench.reference.backbones import HERE as BACKBONES
 
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -58,16 +61,17 @@ def deform_bwd_seconds(value_shape, value_bytes: int, shapes, loc: torch.Tensor)
     return least_seconds(n_bytes, 4 * D * valid_corners(shapes, loc))
 
 
-def forward_flops(arch_dict: Mapping, batch: int, h: int, w: int) -> float:
+def forward_flops(arch_dict: Mapping, batch: int, h: int, w: int,
+                  backbones: Path = BACKBONES) -> float:
     """FLOPs of one forward of the reference at (batch, h, w), counted on
     the meta device: FlopCounterMode's products and convolutions, plus the
     deformable core's 2 x 4 corners x D per sample, which grid_sample hides
-    from the counter."""
+    from the counter. The backbone's file is looked up under `backbones`."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from port_bench.reference.model import Arch, forward, param_specs
 
-    a = Arch.from_dict(arch_dict)
+    a = Arch.from_dict(arch_dict, backbones)
     P = {n: torch.empty(s, device="meta") for n, s, _ in param_specs(a)}
     with FlopCounterMode(display=False) as fc:
         forward(P, torch.empty(batch, h, w, 3, device="meta"), a)

@@ -76,7 +76,7 @@ def reference_readings(drv, batches, points, opt, ref=None):
     against the f32 reference (`ref`, computed here when None)."""
     from port_bench.reference.train import train_steps
 
-    P0 = make_weights(drv.arch, drv.seed, drv.device)
+    P0 = make_weights(drv.arch, drv.weights_seed, drv.device)
     run = lambda b, p, o=opt, **kw: train_steps(P0, b, p, drv.arch, drv.lw, o, drv.weak, **kw)
     if ref is None:
         ref = run(batches, points)
@@ -114,7 +114,7 @@ def serve_readings(drv, with_controls: bool):
     out = [("program", numbers)]
     by_request = {"program": [r["answer_gap"] for r in drv.rows]}
     if with_controls:
-        P0 = make_weights(drv.arch, drv.seed, drv.device)
+        P0 = make_weights(drv.arch, drv.weights_seed, drv.device)
         kind, = CONTROL[drv.conf["serve_precision"]]
         test = drv.conf["test"]
         rows = []

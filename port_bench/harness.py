@@ -11,7 +11,12 @@ A cell's traffic names its driver:
 - "requests": `Predictor.infer` of bm2f_tpu_torch, one client in a closed
   loop. Set-up builds the predictor, loads the weights and warms every
   shape of the mix; the window sends the mix's order of shapes; one
-  request of each shape, drawn from the seed, is checked.
+  request of each shape, drawn from the seed, is checked. A server serves
+  one model: its weights are drawn from the configuration's name, the
+  same in every run, and the seed draws the traffic and the requests
+  checked. (The weights decide how many panoptic segments a request
+  keeps, which the relabelling walks one by one on the host: weights
+  drawn from the seed moved a run's median latency by 8 %.)
 
 `--trace 1` splits the window into three stretches: plain (FLOPs over
 time), marked (the train step's `StageTimer` marks, or hooks on the
@@ -46,8 +51,9 @@ PROFILED_STEPS, PROFILED_REQUESTS = 3, 6
 FWD_RANGE = "port_bench.msda_fwd"
 
 # the reference's names of the configuration's numbers -> the port's config paths
+# (the backbone's: its file's PORT_KEYS)
 PORT_KEYS = {
-    "arch": {"depth": "model.backbone.resnet.depth", "conv_dim": "model.pixel_decoder.conv_dim",
+    "arch": {"conv_dim": "model.pixel_decoder.conv_dim",
              "mask_dim": "model.pixel_decoder.mask_dim",
              "enc_layers": "model.pixel_decoder.transformer_enc_layers",
              "enc_heads": "model.pixel_decoder.transformer_nheads",
@@ -81,8 +87,9 @@ PORT_KEYS = {
     "test": {"object_mask_threshold": "model.test.object_mask_threshold",
              "overlap_threshold": "model.test.overlap_threshold"},
 }
-# what the reference holds fixed, in the port's config
-PORT_FIXED = {"model.backbone.name": "resnet", "model.pixel_decoder.name": "msdeform",
+# what the reference holds fixed, in the port's config (and the backbone's
+# file's PORT_NAME)
+PORT_FIXED = {"model.pixel_decoder.name": "msdeform",
               "model.decoder.name": "multi_scale_masked", "model.decoder.pre_norm": False,
               "model.decoder.enforce_input_project": False,
               "model.pixel_decoder.transformer_in_features": ("res3", "res4", "res5"),
@@ -104,7 +111,11 @@ def verify_config(cfg, conf: Mapping, kind: str) -> None:
     wrong = []
 
     def same(path, want):
-        have = get(path)
+        try:
+            have = get(path)
+        except AttributeError:
+            wrong.append(f"{path}: not in the port's config, file {want!r}")
+            return
         if isinstance(have, (tuple, list)) or isinstance(want, (tuple, list)):
             ok = tuple(have) == tuple(want)
         else:
@@ -115,6 +126,9 @@ def verify_config(cfg, conf: Mapping, kind: str) -> None:
     arch = Arch.from_dict(conf["arch"])
     for key, path in PORT_KEYS["arch"].items():
         same(path, getattr(arch, key))
+    same("model.backbone.name", arch.net.PORT_NAME)
+    for key, path in arch.net.PORT_KEYS.items():
+        same(path, arch.backbone[key])
     for group in ("loss", "optimizer", "test"):
         for key, path in PORT_KEYS[group].items():
             if key in conf[group]:
@@ -151,6 +165,7 @@ class Driver:
         self.c, self.seed, self.device = c, seed, torch.device(device)
         self.conf, self.mix = c.config, c.mix
         self.arch = Arch.from_dict(self.conf["arch"])
+        self.weights_seed = seed
 
 
 class TrainDriver(Driver):
@@ -167,7 +182,7 @@ class TrainDriver(Driver):
 
         cfg = port_config(self.conf, "train")
         verify_config(cfg, self.conf, "train")
-        P0 = make_weights(self.arch, self.seed, self.device)
+        P0 = make_weights(self.arch, self.weights_seed, self.device)
         self.trainer = Trainer(cfg, device=self.device,
                                seed=generator.sub_seed(self.seed, "trainer") % 2 ** 31)
         self.trainer.model.load_state_dict(P0, strict=True)
@@ -308,7 +323,7 @@ class TrainDriver(Driver):
         n = len(self.prog["total"])
         self.release()
         batches = self.pool[:n]
-        P0 = make_weights(self.arch, self.seed, self.device)
+        P0 = make_weights(self.arch, self.weights_seed, self.device)
         opt = AdamWConfig(**{k: tuple(v) if isinstance(v, list) else v
                              for k, v in self.conf["optimizer"].items()})
         ref = train_steps(P0, batches, self.check_points, self.arch, self.lw, opt, self.weak)
@@ -319,6 +334,10 @@ class TrainDriver(Driver):
 class ServeDriver(Driver):
     kind = "serve"
 
+    def __init__(self, c: Cell, seed: int, device):
+        super().__init__(c, seed, device)
+        self.weights_seed = generator.sub_seed(0, f"served weights of {c.config_name}")
+
     def setup(self) -> None:
         from bm2f_tpu_torch.predict import Predictor
 
@@ -326,7 +345,7 @@ class ServeDriver(Driver):
         p = Predictor()
         p.setup(self.conf["preset"], device=self.device, overrides=over)
         verify_config(p.cfg, self.conf, "serve")
-        P0 = make_weights(self.arch, self.seed, self.device)
+        P0 = make_weights(self.arch, self.weights_seed, self.device)
         p.model.load_state_dict(P0, strict=True)
         p.model.cast_weights_for_inference_()
         del P0
@@ -419,7 +438,7 @@ class ServeDriver(Driver):
         kept = [(s, k, out, {"pred_logits": sl[0], "pred_masks": sl[1]})
                 for s, (k, out, sl) in sorted(self.kept.items())]
         self.release()
-        P0 = make_weights(self.arch, self.seed, self.device)
+        P0 = make_weights(self.arch, self.weights_seed, self.device)
         test = self.conf["test"]
         rows = []
         for s, k, out, net in kept:

@@ -1,9 +1,9 @@
-"""Mask2Former with a ResNet backbone, in plain PyTorch, as the paper and
-facebookresearch/Mask2Former describe it (Cheng et al., "Masked-attention
-Mask Transformer for Universal Image Segmentation", CVPR 2022):
+"""Mask2Former in plain PyTorch, as the paper and facebookresearch/Mask2Former
+describe it (Cheng et al., "Masked-attention Mask Transformer for Universal
+Image Segmentation", CVPR 2022):
 
-- ResNet (detectron2's R50: caffe stem, stride in the 1x1, FrozenBN, no
-  conv bias);
+- the backbone the configuration names (`arch.backbone`), from its file
+  under `backbones/`;
 - the multi-scale deformable-attention pixel decoder (msdeformattn.py): 1x1
   projections with GroupNorm(32) of res5, res4, res3, sine positions plus a
   level embedding, post-norm encoder layers whose sampling core is
@@ -17,11 +17,11 @@ Mask Transformer for Universal Image Segmentation", CVPR 2022):
   in turn; a prediction head before the first layer and after each.
 
 It is a function of a flat dict of weights named as detectron2 names them
-(`backbone.res2.0.conv1.weight`, `sem_seg_head.pixel_decoder...`,
+(`backbone...` as its file names them, `sem_seg_head.pixel_decoder...`,
 `sem_seg_head.predictor...`), so that the benchmark hands one dict to this
 reference and to the system under test. `param_specs` lists those names
 with their shapes and the kind of each, which the benchmark's seeded
-weights follow. FrozenBN is its folded form (`scale`, `bias`).
+weights follow.
 
 Departure from upstream, kept because the configuration states it:
 padding masks are all-valid (upstream feeds an all-False mask to the
@@ -31,22 +31,27 @@ encoder as well), so valid ratios are 1.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
-from typing import Dict, List, Mapping, Tuple
+from dataclasses import dataclass, field, fields
+from pathlib import Path
+from types import ModuleType
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-STAGES = {14: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+from port_bench.reference import backbones
+
 NEG_INF = float("-inf")
+# the backbone of an `arch` that names none; its sizes then sit in `arch` itself
+DEFAULT_BACKBONE = "resnet"
 
 
 @dataclass(frozen=True)
 class Arch:
-    """The sizes of one Mask2Former-R50-style model (defaults: the published
-    maskformer2_R50_bs16_50ep)."""
+    """The sizes of one Mask2Former model (defaults: the published
+    maskformer2_R50_bs16_50ep's head). `backbone` is the configuration's
+    `{"name": ..., <that backbone's sizes>}`, `net` its file."""
 
-    depth: int = 50
     conv_dim: int = 256
     mask_dim: int = 256
     enc_layers: int = 6
@@ -62,14 +67,28 @@ class Arch:
     size_divisibility: int = 32
     pixel_mean: Tuple[float, ...] = (123.675, 116.28, 103.53)
     pixel_std: Tuple[float, ...] = (58.395, 57.12, 57.375)
+    backbone: Mapping = field(default_factory=dict)
+    net: Optional[ModuleType] = field(default=None, compare=False, repr=False)
 
     @classmethod
-    def from_dict(cls, d: Mapping) -> "Arch":
-        names = {f.name for f in fields(cls)}
+    def from_dict(cls, d: Mapping, base: Path = backbones.HERE) -> "Arch":
+        """From a configuration's `arch`, the backbone's file looked up under
+        `base`. Without `arch.backbone` the backbone is DEFAULT_BACKBONE, its
+        sizes (the keys of its PORT_KEYS) read from `arch` itself."""
+        d = dict(d)
+        if "backbone" in d:
+            bb = dict(d.pop("backbone"))
+            net = backbones.load(bb["name"], base)
+        else:
+            net = backbones.load(DEFAULT_BACKBONE, base)
+            bb = {"name": DEFAULT_BACKBONE, **{k: d.pop(k) for k in net.PORT_KEYS if k in d}}
+        names = {f.name for f in fields(cls)} - {"backbone", "net"}
         unknown = set(d) - names
         if unknown:
             raise KeyError(f"unknown architecture keys {sorted(unknown)}")
-        return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items()})
+        tup = lambda v: tuple(v) if isinstance(v, list) else v
+        return cls(**{k: tup(v) for k, v in d.items()},
+                   backbone={k: tup(v) for k, v in bb.items()}, net=net)
 
 
 # ---------------------------------------------------------------------------
@@ -78,18 +97,16 @@ class Arch:
 
 
 def param_specs(a: Arch) -> List[Tuple[str, Tuple[int, ...], str]]:
-    """(name, shape, kind) of every weight, kind one of "fan_in" (a matrix
-    or convolution kernel), "zero", "one", "embed" (an embedding table),
-    "class" (the classifier), "ring" (the sampling-offset bias)."""
+    """(name, shape, kind) of every weight, the backbone's first (its file's
+    `param_specs`), kind one of "fan_in" (a matrix or convolution kernel),
+    "zero", "one", "embed" (an embedding table), "class" (the classifier),
+    "ring" (the sampling-offset bias) or a kind of the backbone's `KINDS`."""
     out: List[Tuple[str, Tuple[int, ...], str]] = []
 
-    def conv(name, cout, cin, k, bias=False, frozen=False, gn=False):
+    def conv(name, cout, cin, k, bias=False, gn=False):
         out.append((f"{name}.weight", (cout, cin, k, k), "fan_in"))
         if bias:
             out.append((f"{name}.bias", (cout,), "zero"))
-        if frozen:
-            out.append((f"{name}.norm.scale", (cout,), "one"))
-            out.append((f"{name}.norm.bias", (cout,), "zero"))
         if gn:
             out.append((f"{name}.norm.weight", (cout,), "one"))
             out.append((f"{name}.norm.bias", (cout,), "zero"))
@@ -102,22 +119,12 @@ def param_specs(a: Arch) -> List[Tuple[str, Tuple[int, ...], str]]:
         out.append((f"{name}.weight", (c,), "one"))
         out.append((f"{name}.bias", (c,), "zero"))
 
-    conv("backbone.stem.conv1", 64, 3, 7, frozen=True)
-    cin, cout, bott = 64, 256, 64
-    for si, n in enumerate(STAGES[a.depth]):
-        for b in range(n):
-            p = f"backbone.res{si + 2}.{b}"
-            conv(f"{p}.conv1", bott, cin, 1, frozen=True)
-            conv(f"{p}.conv2", bott, bott, 3, frozen=True)
-            conv(f"{p}.conv3", cout, bott, 1, frozen=True)
-            if cin != cout:
-                conv(f"{p}.shortcut", cout, cin, 1, frozen=True)
-            cin = cout
-        cout, bott = cout * 2, bott * 2
+    out.extend(a.net.param_specs(a.backbone))
+    ch = a.net.channels(a.backbone)
 
     C, pd = a.conv_dim, "sem_seg_head.pixel_decoder"
-    for i, ch in enumerate((2048, 1024, 512)):
-        conv(f"{pd}.input_proj.{i}.0", C, ch, 1, bias=True)
+    for i, f in enumerate(("res5", "res4", "res3")):
+        conv(f"{pd}.input_proj.{i}.0", C, ch[f], 1, bias=True)
         norm(f"{pd}.input_proj.{i}.1", C)
     out.append((f"{pd}.transformer.level_embed", (3, C), "embed"))
     M, L, P = a.enc_heads, 3, a.enc_points
@@ -132,7 +139,7 @@ def param_specs(a: Arch) -> List[Tuple[str, Tuple[int, ...], str]]:
         linear(f"{p}.linear1", a.enc_ffn, C)
         linear(f"{p}.linear2", C, a.enc_ffn)
         norm(f"{p}.norm2", C)
-    conv(f"{pd}.adapter_1", C, 256, 1, gn=True)
+    conv(f"{pd}.adapter_1", C, ch["res2"], 1, gn=True)
     conv(f"{pd}.layer_1", C, C, 3, gn=True)
     conv(f"{pd}.mask_features", a.mask_dim, C, 1, bias=True)
 
@@ -199,10 +206,6 @@ def sine_position(h: int, w: int, c: int, device) -> torch.Tensor:
     return pos.reshape(h * w, c).float()
 
 
-def frozen_bn(x, P, name):
-    return x * P[f"{name}.norm.scale"][:, None, None] + P[f"{name}.norm.bias"][:, None, None]
-
-
 def layer_norm(x, P, name):
     return F.layer_norm(x, (x.shape[-1],), P[f"{name}.weight"], P[f"{name}.bias"], 1e-5)
 
@@ -213,32 +216,6 @@ def group_norm(x, P, name):
 
 def resize(x, h, w):
     return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
-
-
-# ---------------------------------------------------------------------------
-# Backbone
-# ---------------------------------------------------------------------------
-
-
-def resnet(x: torch.Tensor, P, a: Arch) -> Dict[str, torch.Tensor]:
-    def conv_bn(x, name, stride=1, k=1):
-        return frozen_bn(conv(x, P[f"{name}.weight"], stride=stride, padding=(k - 1) // 2),
-                         P, name)
-
-    x = F.relu(conv_bn(x, "backbone.stem.conv1", 2, 7))
-    x = F.max_pool2d(x, 3, 2, 1)
-    feats = {}
-    for si, n in enumerate(STAGES[a.depth]):
-        for b in range(n):
-            p = f"backbone.res{si + 2}.{b}"
-            stride = 2 if (b == 0 and si > 0) else 1
-            y = F.relu(conv_bn(x, f"{p}.conv1", stride))
-            y = F.relu(conv_bn(y, f"{p}.conv2", 1, 3))
-            y = conv_bn(y, f"{p}.conv3")
-            sc = conv_bn(x, f"{p}.shortcut", stride) if f"{p}.shortcut.weight" in P else x
-            x = F.relu(y + sc)
-        feats[f"res{si + 2}"] = x
-    return feats
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +386,6 @@ def forward(P: Mapping[str, torch.Tensor], images: torch.Tensor, a: Arch) -> Dic
     """images (B, H, W, 3) RGB in [0, 255], sides multiples of
     `a.size_divisibility`. Returns pred_logits (B, Q, K+1), pred_masks (B,
     Q, H/4, W/4) and the lists aux_logits, aux_masks of the earlier heads."""
-    feats = resnet(normalize(images, a), P, a)
+    feats = a.net.forward(normalize(images, a), P, a.backbone)
     mask_features, levels = pixel_decoder(feats, P, a)
     return decoder(levels, mask_features, P, a)

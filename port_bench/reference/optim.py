@@ -6,8 +6,13 @@ and optax's numerics, in plain PyTorch:
 - Adam moments (betas 0.9, 0.999), bias-corrected, eps 1e-8 added to the
   square root;
 - decoupled weight decay (0.05) added to the update from the parameter
-  before the step, except on norms (GroupNorm, LayerNorm) and embeddings
-  (the query tables, both level embeddings);
+  before the step, except on norms (GroupNorm, LayerNorm), embeddings
+  (the query tables, both level embeddings) and, as upstream exempts them
+  by name for every model, Swin's `relative_position_bias_table` and
+  `absolute_pos_embed`;
+- every weight trains but a frozen BatchNorm's folded constants: a
+  backbone norm that holds a `scale` (a LayerNorm holds a `weight`, and
+  trains), with its `bias`;
 - the backbone's update at 0.1 of the learning rate;
 - the learning rate of step t (updates made before it): base_lr x the
   linear warm-up factor over `warmup_iters` x gamma ** (milestones passed).
@@ -21,12 +26,14 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
 NO_DECAY = re.compile(r"(norm\d?|decoder_norm|input_proj\.\d+\.1)\.(weight|bias)$"
-                      r"|(query_feat|query_embed|level_embed)(\.weight)?$")
+                      r"|(query_feat|query_embed|level_embed)(\.weight)?$"
+                      r"|(relative_position_bias_table|absolute_pos_embed)$")
+FOLDED_SCALE = re.compile(r"^backbone\..*\.norm\.scale$")
 
 
 @dataclass(frozen=True)
@@ -42,9 +49,11 @@ class AdamWConfig:
     gamma: float = 0.1
 
 
-def trainable(name: str) -> bool:
-    """Every weight but the backbone's FrozenBN constants."""
-    return not (name.startswith("backbone.") and ".norm." in name)
+def trainable(names: Iterable[str]) -> List[str]:
+    """The names, in order, less each folded norm's `scale` and `bias`."""
+    names = list(names)
+    folded = {n[:-len("scale")] for n in names if FOLDED_SCALE.search(n)}
+    return [n for n in names if n.rpartition(".")[0] + "." not in folded]
 
 
 def lr_at(cfg: AdamWConfig, t: int) -> float:

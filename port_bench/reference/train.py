@@ -84,7 +84,7 @@ def train_steps(P0: Mapping[str, torch.Tensor], batches: Sequence[Mapping[str, t
     """len(batches) steps from the weights P0 (left unchanged), each
     forward, criterion and gradient computed in `numerics`."""
     P = {n: v.detach().clone() for n, v in P0.items()}
-    names = [n for n in P if trainable(n)]
+    names = trainable(P)
     adam = AdamW(names, P, opt)
     rec = StepRecord()
     for t, (batch, pts) in enumerate(zip(batches, points)):

@@ -117,6 +117,20 @@ def test_every_seed_sends_the_same_work():
     assert [a.count(i) for i in range(len(mix["shapes"]))] == [2 * k for k in mix["per_cycle"]]
 
 
+@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+def test_a_served_model_keeps_its_weights_in_every_run(workload):
+    """A served cell's weights follow its configuration, not the run's
+    seed (they decide how many panoptic segments the relabelling walks);
+    a training run starts from weights of its own seed."""
+    c = manifest.cell(workload)
+    drivers = [harness.DRIVERS[c.mix["driver"]](c, s, "cpu") for s in (2 ** 33 + 1, 2 ** 33 + 2)]
+    seeds = [d.weights_seed for d in drivers]
+    if c.mix["driver"] == "requests":
+        assert seeds[0] == seeds[1] == generator.sub_seed(0, f"served weights of {c.config_name}")
+    else:
+        assert seeds == [d.seed for d in drivers]
+
+
 ADDED = """
 import json, sys
 from port_bench import manifest

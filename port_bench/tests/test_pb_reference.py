@@ -121,7 +121,7 @@ def test_adamw_policy_matches_port():
     with torch.device("meta"):
         m = MaskFormer(cfg.model)
     groups = param_groups(m, cfg.train.optimizer)
-    names = [n for n in make_weights(Arch.from_dict(c.config["arch"]), 1, "cpu") if trainable(n)]
+    names = trainable(make_weights(Arch.from_dict(c.config["arch"]), 1, "cpu"))
     assert sorted(g.name for g in groups) == sorted(names)
     for g in groups:
         assert g.decay == (NO_DECAY.search(g.name) is None), g.name

@@ -2,6 +2,7 @@
 kind of run, averages over the roots it finds, and gives None, without
 raising, where the program has no tracing module or no such root."""
 
+import re
 import sys
 
 import pytest
@@ -11,6 +12,13 @@ from port_bench import manifest, spans
 # the per-layer metrics read from the spans and counters
 NEW = [m["name"] for m in manifest.benchmark()["per_layer"]
        if "port_bench.spans" in (manifest.HERE / "metrics" / f"{m['name']}.py").read_text()]
+
+
+def names_in(metric):
+    """The dotted names quoted in a reader's source: its roots, spans and
+    counters."""
+    src = (manifest.HERE / "metrics" / f"{metric}.py").read_text()
+    return set(re.findall(r'"([a-z_]+(?:\.[a-z0-9_]+)+)"', src))
 
 
 def fake_roots(monkeypatch, roots):
@@ -34,7 +42,14 @@ def test_without_the_tracing_module_a_reader_gives_none(metric, monkeypatch):
 
 
 def test_the_readers_average_over_their_roots(monkeypatch):
-    assert len(NEW) == 10
+    # every reader reads a value from roots that hold every name they quote
+    names = sorted(set().union(*map(names_in, NEW)))
+    whole = [root(n, [(s, 1.0, 2.0) for s in names], {c: 1 for c in names}) for n in names]
+    fake_roots(monkeypatch, whole)
+    for m in NEW:
+        rec = {"kind": "serve" if m.startswith("serve.") else "train"}
+        assert isinstance(manifest.reader(m)(rec), float), m
+
     fake_roots(monkeypatch, [
         root("serve.request", [("serve.request", 9, 9), ("serve.to_host", 2.0, 2.5),
                                ("serve.relabel", 0.1, 1.0)], {"serve.to_host_bytes": 4e6}),
