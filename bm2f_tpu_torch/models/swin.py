@@ -19,6 +19,13 @@ a detectron2 wrap of the official Swin), as the JAX package computes it
   (`torch.utils.checkpoint`, the JAX package's `nn.remat`).
 - `ape` resizes the absolute position table bilinearly (`ops.resize_bilinear`,
   as JAX does; upstream used bicubic).
+- Traced (`utils.tracing`): each `WindowAttention.forward` opens the span
+  "swin.window_attn" over its core, from q, k, v to the output before
+  `proj` (scores, bias, mask, softmax, the product with v), and adds to the
+  counters "swin.attn_flops" (4 windows N^2 C: the two products over the
+  padded windows) and "swin.attn_bytes" (4 windows N C at the input's
+  element size: q, k, v read and the output written once), Python ints
+  from the shapes. Off, a call costs one check.
 
 Parameter names are upstream's: `patch_embed.{proj,norm}`, `absolute_pos_embed`
 (1, C, gs, gs), `layers.{s}.blocks.{i}.{norm1,attn.qkv,attn.proj,
@@ -46,6 +53,7 @@ from bm2f_tpu_torch.config import SwinConfig
 from bm2f_tpu_torch.models.layers import Conv2d, LayerNorm, Linear, at_least_f32, cast
 from bm2f_tpu_torch.parallel import tp as tparallel
 from bm2f_tpu_torch.ops import resize_bilinear
+from bm2f_tpu_torch.utils import tracing
 
 
 def relative_position_index(window: int) -> np.ndarray:
@@ -151,16 +159,22 @@ class WindowAttention(nn.Module):
             table = tparallel.head_slice(table, self.tp, 1, H)
             H //= self.tp.size
         q, k, v = self.qkv(x).reshape(Bw, N, 3, H, D).permute(2, 0, 3, 1, 4)
-        attn = (q * self.scale) @ k.transpose(-2, -1)
-        table = cast(table, x.dtype)
-        bias = table[self.relative_position_index].reshape(N, N, H).permute(2, 0, 1)
-        attn = attn + bias[None]
-        if attn_mask is not None:
-            nW = attn_mask.shape[0]
-            attn = (attn.reshape(Bw // nW, nW, H, N, N) + attn_mask[None, :, None]
-                    ).reshape(Bw, H, N, N)
-        attn = torch.softmax(at_least_f32(attn), dim=-1).to(x.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(Bw, N, H * D)
+        core = tracing.span("swin.window_attn")
+        with core:
+            if core is not tracing.NULL:
+                # the padded windows' work: q k^T and attn v; q, k, v read, the output written
+                tracing.count("swin.attn_flops", 4 * Bw * N * N * H * D)
+                tracing.count("swin.attn_bytes", 4 * Bw * N * H * D * x.element_size())
+            attn = (q * self.scale) @ k.transpose(-2, -1)
+            table = cast(table, x.dtype)
+            bias = table[self.relative_position_index].reshape(N, N, H).permute(2, 0, 1)
+            attn = attn + bias[None]
+            if attn_mask is not None:
+                nW = attn_mask.shape[0]
+                attn = (attn.reshape(Bw // nW, nW, H, N, N) + attn_mask[None, :, None]
+                        ).reshape(Bw, H, N, N)
+            attn = torch.softmax(at_least_f32(attn), dim=-1).to(x.dtype)
+            out = (attn @ v).transpose(1, 2).reshape(Bw, N, H * D)
         if self.tp is not None:
             return tparallel.row_linear(self.proj, out, self.tp)
         return self.proj(out)
