@@ -7,7 +7,9 @@ HungarianMatcherProjPair :219).
 Everything is batched tensor math on the inputs' device, channels last as in
 the JAX package: `unfold_wo_center` takes K zero-padded shifts, the LAB
 conversion runs on the device, and the projection flags of every (query,
-target) pair are one broadcast comparison.
+target) pair are one broadcast comparison. The matcher's pairwise cost is
+factored (`pairwise_cost_matrix`), its per-pixel sums a hand-written kernel
+on the card (`ops/pairwise_cost.py`).
 
 Where the two frameworks give different bits:
 - `rgb_to_lab` takes `xyz ** (1/3)` where JAX takes `cbrt` (the same
@@ -27,6 +29,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from bm2f_tpu_torch.ops.pairwise_cost import log_same_sum_cuda
+from bm2f_tpu_torch.utils import tracing
 
 _RGB_TO_XYZ = ((0.412453, 0.357580, 0.180423),
                (0.212671, 0.715160, 0.072169),
@@ -244,6 +249,16 @@ def weighted_pairwise_loss(src_masks: torch.Tensor, weights: torch.Tensor,
     return loss / num_masks * warmup_factor
 
 
+def log_same_sum(pred_masks: torch.Tensor, color_similarity: torch.Tensor, *,
+                 color_thresh: float, kernel_size: int, dilation: int) -> torch.Tensor:
+    """(Q, H*W) S[q, p] = sum_k 1[cs[p, k] >= color_thresh] * lsp(q, p, k): the
+    plain version of `ops.pairwise_cost.log_same_sum_cuda`. pred_masks (Q,
+    H, W) logits, color_similarity (H, W, K) of the image."""
+    lsp = log_same_prob(pred_masks, kernel_size, dilation)  # (Q, H, W, K)
+    m = (color_similarity >= color_thresh).to(lsp.dtype)
+    return (lsp * m).sum(-1).reshape(lsp.shape[0], -1)
+
+
 def pairwise_cost_matrix(pred_masks: torch.Tensor, color_similarity: torch.Tensor,
                          box_masks: torch.Tensor, *, color_thresh: float = 0.3,
                          kernel_size: int = 3, dilation: int = 2,
@@ -251,12 +266,26 @@ def pairwise_cost_matrix(pred_masks: torch.Tensor, color_similarity: torch.Tenso
     """(Q, G) pairwise-affinity matching cost (reference: matcher.py:50-88
     calculate_similarity_cost with the warmup :296-300): cost[q, g] =
     sum(-lsp_q * w_g) / sum(w_g). pred_masks (Q, H, W) logits,
-    color_similarity (G, H, W, K) (per-target copies; an expanded view
-    will do), box_masks (G, H, W)."""
-    lsp = log_same_prob(pred_masks, kernel_size, dilation)  # (Q, H, W, K)
-    w = (color_similarity >= color_thresh).to(lsp.dtype) * box_masks[..., None]
-    num = -torch.einsum("qhwk,ghwk->qg", lsp, w)
-    den = w.sum(dim=(1, 2, 3)).clamp(min=1.0)[None]
+    color_similarity (H, W, K) of the image, box_masks (G, H, W).
+
+    The weights factor, w[g, p, k] = 1[cs[p, k] >= t] * box[g, p], so the
+    numerator is -S @ box^T with S = `log_same_sum` (Q, H*W), and the
+    denominator box @ M with M[p] = sum_k 1[cs[p, k] >= t]: nothing of
+    size (Q, H, W, K) or (G, H, W, K) on the card, where S is the kernel's
+    (`ops.pairwise_cost`). Counts "costs.pairwise_calls" and, when it
+    launches the kernel, "costs.pairwise_kernel"."""
+    H, W = pred_masks.shape[1:]
+    tracing.count("costs.pairwise_calls", 1)
+    kw = dict(color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation)
+    if pred_masks.is_cuda:
+        S = log_same_sum_cuda(pred_masks.contiguous(), color_similarity.contiguous(), **kw)
+        tracing.count("costs.pairwise_kernel", 1)
+    else:
+        S = log_same_sum(pred_masks, color_similarity, **kw)
+    box = box_masks.reshape(box_masks.shape[0], H * W).to(S.dtype)
+    m = (color_similarity >= color_thresh).to(S.dtype).sum(-1).reshape(H * W)
+    num = -(S @ box.T)
+    den = (box @ m).clamp(min=1.0)[None]
     return num / den * warmup_factor
 
 

@@ -74,10 +74,9 @@ def weaksup_matcher_costs(pred_logits: torch.Tensor, pred_masks: torch.Tensor,
             c = cost_projection * projection_cost_matrix(masks[b], targets["box_masks"][b],
                                                          bounds)
         if cost_pairwise > 0.0:
-            cs = targets["color_similarity"][b]
             with tracing.span("costs.pairwise"):
                 c = c + cost_pairwise * pairwise_cost_matrix(
-                    masks[b], cs[None].expand(G, *cs.shape), targets["box_masks"][b],
+                    masks[b], targets["color_similarity"][b], targets["box_masks"][b],
                     color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
                     warmup_factor=warmup_factor)
         c_mask.append(c)

@@ -162,10 +162,9 @@ def video_weaksup_matcher_costs(pred_logits: torch.Tensor, pred_masks: torch.Ten
             with tracing.span("costs.projection"):
                 c = c + cost_projection * projection_cost_matrix(masks[b, :, t], box, bounds)
             if cost_pairwise > 0.0:
-                cs = targets["color_similarity"][b, t]
                 with tracing.span("costs.pairwise"):
                     c = c + cost_pairwise * pairwise_cost_matrix(
-                        masks[b, :, t], cs[None].expand(G, *cs.shape), box,
+                        masks[b, :, t], targets["color_similarity"][b, t], box,
                         color_thresh=color_thresh, kernel_size=kernel_size,
                         dilation=dilation, warmup_factor=warmup_factor)
         c_mask.append(c)

@@ -41,6 +41,11 @@ Phases, each printing its own line:
      timed beside the plain version, the bound and `F.embedding_bag`, K4
      beside both of its tensor-core ceilings (dense, and the products it
      issues);
+ 12b. the box matcher's pairwise sums (`csrc/pairwise_cost.cu`) against
+     their plain version at the box cell's shape (Q 100, 216 x 352, K 8),
+     at a ragged shape and at (5, 2); two launches bitwise equal; timed
+     beside the plain version, the matcher's whole pairwise cost and the
+     bound; phases 24 and 31 count its launches in the weak steps;
  13. K1 on a bf16 `value` against its plain version (edge cases and the
      800x800 shapes at B=1 and 4) and timed (the wrapper calls) beside it
      and its bound;
@@ -671,9 +676,12 @@ def reset_counts():
         row_gather_sum_onehot_cuda,
     )
 
+    from bm2f_tpu_torch.ops.pairwise_cost import log_same_sum_cuda
+
     for fn in (ms_deform_attn_cuda, ms_deform_attn_bwd_cuda, row_gather_sum_cuda,
                row_gather_sum_onehot_cuda):
         fn.launches = fn.launches_bf16 = 0
+    log_same_sum_cuda.launches = 0
 
 
 def serve(pred, images, path: str, draws: list = None) -> list:
@@ -1023,6 +1031,64 @@ def probe_path():
     log("probe", lines=len(lines), seconds=f"{time.perf_counter() - t0:.2f}",
         **{f"{k}_launches": v for k, v in counts.items()})
     return lines, counts
+
+
+# phase 12b: (Q, H, W, kernel_size, dilation) of the box cell (864 x 1408 at
+# stride 4), a shape that is no multiple of the 16 x 32 tile, and (5, 2)
+PAIRWISE_CASES = ((100, 216, 352, 3, 2), (100, 213, 349, 3, 2), (16, 213, 349, 5, 2))
+
+
+def check_pairwise_cost(dev):
+    """Phase 12b: the pairwise sums S through the kernel against
+    `weaksup.log_same_sum` (rtol and atol 1e-5: same-sign log-probability
+    terms, each an exp and a log within an ulp or two), two launches
+    bitwise equal, and at the box cell's shape the kernel, the plain
+    version and the whole `pairwise_cost_matrix` timed (the matcher's
+    call: G 100, 7 real boxes). Bound: the logits and similarity read
+    once, S written once. Returns (max abs err, ms, plain ms, cost ms,
+    bound ms, bound by)."""
+    from bm2f_tpu_torch.losses import weaksup as tw
+    from bm2f_tpu_torch.ops.pairwise_cost import log_same_sum_cuda
+
+    rng = np.random.RandomState(0)
+    max_err = 0.0
+    for Q, H, W, ks, dil in PAIRWISE_CASES:
+        x = torch.from_numpy(rng.randn(Q, H, W).astype(np.float32) * 3)
+        x[torch.from_numpy(rng.rand(Q, H, W) < 0.2)] = 40.0
+        x[torch.from_numpy(rng.rand(Q, H, W) < 0.2)] = -40.0
+        lab = np.repeat(np.repeat(rng.rand(1, -(-H // 8), -(-W // 8), 3) * 100, 8, 1), 8, 2)
+        lab = torch.from_numpy((lab[:, :H, :W] + rng.randn(1, H, W, 3)).astype(np.float32))
+        cs = tw.get_images_color_similarity(lab, ks, dil)[0].to(dev)
+        x = x.to(dev)
+        kw = dict(color_thresh=0.3, kernel_size=ks, dilation=dil)
+        got = log_same_sum_cuda(x, cs, **kw)
+        again = log_same_sum_cuda(x, cs, **kw)
+        torch.cuda.synchronize()
+        want = tw.log_same_sum(x, cs, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if not torch.equal(got, again):
+            raise AssertionError(f"pairwise sums differ between two launches at {Q, H, W}")
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        log("check", kernel="pairwise_lsp_sum", Q=Q, H=H, W=W, kernel_size=ks, dilation=dil,
+            max_abs_err=f"{err:.3e}")
+        if (Q, H, W, ks) == PAIRWISE_CASES[0][:4]:
+            box = torch.zeros(100, H, W, device=dev)
+            for g in range(7):
+                y0, x0 = rng.randint(0, H - 20), rng.randint(0, W - 20)
+                box[g, y0:y0 + rng.randint(10, H - y0), x0:x0 + rng.randint(10, W - x0)] = 1
+            k_ms = cuda_ms(lambda: log_same_sum_cuda(x, cs, **kw), 200)
+            p_ms = cuda_ms(lambda: tw.log_same_sum(x, cs, **kw), 10)
+            c_ms = cuda_ms(lambda: tw.pairwise_cost_matrix(x, cs, box, **kw), 100)
+            n_bytes = (2 * Q * H * W + H * W * cs.shape[-1]) * 4
+            # each edge: 7 adds, an exp and a log; each pixel: two log-sigmoids
+            bound, by = bound_ms(n_bytes, Q * H * W * (9 * cs.shape[-1] + 6))
+            timed = (k_ms, p_ms, c_ms, bound, by)
+            log("time", kernel="pairwise_lsp_sum", Q=Q, H=H, W=W, ms=f"{k_ms:.4f}",
+                plain_ms=f"{p_ms:.4f}", pairwise_cost_matrix_ms=f"{c_ms:.4f}",
+                bound_ms=f"{bound:.4f}", bound_by=by, bytes=n_bytes,
+                share_of_bound=f"{bound / k_ms:.3f}")
+    return (max_err, *timed)
 
 
 def check_k1_bf16(dev, gen):
@@ -2189,6 +2255,19 @@ def weak_train_path(trainer, batches, dev, path: str, tag: str = "weak",
         peak_mem_gib=f"{peak:.2f}", min_encoder_grad_abs_sum=f"{min(grads.values()):.3e}")
     log(f"{tag}_stages", path=path, **{k: f"{v / n_steps:.2f}ms" for k, v in timer.ms.items()})
     return launches, median
+
+
+def pairwise_launches(path: str) -> int:
+    """The pairwise-sum kernel's launches in the timed weak steps just run
+    (`weak_train_path` sets the counts to 0 before them): at least one, as
+    every weak preset here takes the pairwise cost."""
+    from bm2f_tpu_torch.ops.pairwise_cost import log_same_sum_cuda
+
+    n = log_same_sum_cuda.launches
+    log("pairwise", path=path, launches=n)
+    if n < 1:
+        raise AssertionError(f"{path}: the pairwise-sum kernel never launched")
+    return n
 
 
 def weak_parity(trainer, batch, dev):
@@ -3733,6 +3812,10 @@ def main() -> int:
     probe_lines, probe_counts = probe_path()
     torch.cuda.empty_cache()
 
+    # -- 12b. the box matcher's pairwise sums -------------------------------------
+    pc_err, pc_ms, pc_plain_ms, pc_cost_ms, pc_bound, pc_by = check_pairwise_cost(dev)
+    torch.cuda.empty_cache()
+
     # -- 13. K1 on a bf16 value ---------------------------------------------------
     k1b_err, (k1b_ms, k1b_plain_ms, k1b_bound, k1b_by) = check_k1_bf16(dev, gen)
     torch.cuda.empty_cache()
@@ -3798,6 +3881,7 @@ def main() -> int:
         batches = weak_batches(get_config(WEAK_CONFIG, WEAK_OVER), dev, TRAIN_STEPS + 1)
         trainer = make_weak_trainer(WEAK_CONFIG, dev)
         (k1_weak, k2_weak), _ = weak_train_path(trainer, batches, dev, "weak")
+        pc_weak = pairwise_launches("weak")
 
         # -- 25. the weak step against the plain path; repeatability ----------------------
         weak_parity(trainer, batches[-1], dev)
@@ -3860,6 +3944,8 @@ def main() -> int:
                 video_k2_against_f64(trainer, batches[0], dev)
             k_video[path], _ = weak_train_path(trainer, batches, dev, f"video_{path}",
                                                tag="video", nonzero=VIDEO_WEAK_LOSSES)
+            if path == "weak":
+                pc_video = pairwise_launches("video_weak")
             if path == "weak":
                 # -- 32. the weak video step against the plain path; repeatability --------
                 video_weak_parity(trainer, batches[-1])
@@ -4002,6 +4088,21 @@ def main() -> int:
         "bound_by": k2b_by,
         "library_ms": None,
     }]
+    kernels.append({
+        "name": "pairwise_lsp_sum",
+        "route": "cuda",
+        "source": "bm2f_tpu_torch/csrc/pairwise_cost.cu",
+        "replaces": None,  # the port's alone: the JAX package leaves it to XLA's einsum
+        "launches": pc_weak + pc_video,
+        "launches_by_path": {"train_weak": pc_weak, "train_video_weak": pc_video},
+        "max_abs_err": pc_err,
+        "ms": pc_ms,
+        "plain_ms": pc_plain_ms,
+        "pairwise_cost_matrix_ms": pc_cost_ms,
+        "bound_ms": pc_bound,
+        "bound_by": pc_by,
+        "library_ms": None,
+    })
     # the probe's kernels, each at its row's shapes (S=2500, random addresses)
     for name, impl, source, line_no in (
             ("gather_rows_f32", "scalar", "gather_rows.cu", 59),

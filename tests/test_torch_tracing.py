@@ -204,8 +204,10 @@ def test_a_marked_step_sees_the_six_stages_and_counts_the_targets(preset, weak, 
         assert costs == ["costs.projection", "costs.pairwise"] * (layers * images * frames)
     else:
         assert costs == []
+    # every pairwise cost counts a call; on the CPU none launches the kernel
+    pairwise = {"costs.pairwise_calls": layers * images * frames} if weak else {}
     assert root["counters"] == {"targets.slots": b["valid"].numel(),
-                                "targets.valid": int(b["valid"].sum())}
+                                "targets.valid": int(b["valid"].sum()), **pairwise}
 
 
 def require_cuda() -> torch.device:

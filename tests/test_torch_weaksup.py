@@ -229,8 +229,58 @@ def test_pairwise_loss_and_cost_match_jax():
     pred = rng.randn(Q, h, w).astype(np.float32) * 2
     cs_g = np.broadcast_to(cs[:1], (N, h, w, 8))
     want_c = jax.jit(lambda *a: jw.pairwise_cost_matrix(*a, **kw))(J(pred), J(cs_g), J(box))
-    got_c = tw.pairwise_cost_matrix(T(pred), T(cs[:1]).expand(N, h, w, 8), T(box), **kw)
+    got_c = tw.pairwise_cost_matrix(T(pred), T(cs[0]), T(box), **kw)
     np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=RTOL, atol=ATOL)
+
+
+# the factored cost against JAX's einsum over (Q, h, w, K) x (G, h, w, K):
+# the shape above, a map no larger than the halo (every edge touches the
+# border), boxes all zero (0 over a denominator clamped to 1), a threshold
+# every edge passes and one none passes, logits of +-40, the warmup's ends,
+# and dilation 1
+PAIRWISE_COST_CASES = {
+    "shape_above": {},
+    "map_inside_the_halo": dict(h=3, w=4),
+    "zero_boxes": dict(zero_boxes=True),
+    "every_edge": dict(color_thresh=0.0),
+    "no_edge": dict(color_thresh=1.5),
+    "logits_40": dict(saturate=40.0),
+    "warmup_0": dict(warmup_factor=0.0),
+    "warmup_1": dict(warmup_factor=1.0),
+    "dilation_1": dict(dilation=1),
+}
+
+
+@pytest.mark.parametrize("case", list(PAIRWISE_COST_CASES))
+def test_pairwise_cost_matrix_matches_jax(case):
+    c = dict(h=10, w=12, zero_boxes=False, saturate=None, color_thresh=0.3, dilation=2,
+             warmup_factor=0.25)
+    c.update(PAIRWISE_COST_CASES[case])
+    rng = np.random.RandomState(7)
+    G, Q, h, w = 5, 4, c["h"], c["w"]
+    pred = rng.randn(Q, h, w).astype(np.float32) * 2
+    if c["saturate"] is not None:
+        pred[rng.rand(*pred.shape) < 0.3] = c["saturate"]
+        pred[rng.rand(*pred.shape) < 0.3] = -c["saturate"]
+    cs = rng.rand(h, w, 8).astype(np.float32)
+    box = np.zeros((G, h, w), np.float32)  # empty, full, at two borders, random
+    if not c["zero_boxes"]:
+        box[1] = 1.0
+        box[2, : h // 2 + 1, w // 3:] = 1.0
+        for g in (3, 4):
+            y0, x0 = rng.randint(0, h), rng.randint(0, w)
+            box[g, y0:y0 + rng.randint(1, h - y0 + 1), x0:x0 + rng.randint(1, w - x0 + 1)] = 1
+    kw = dict(color_thresh=c["color_thresh"], kernel_size=3, dilation=c["dilation"],
+              warmup_factor=c["warmup_factor"])
+
+    cs_g = np.broadcast_to(cs, (G, h, w, 8))
+    want = jax.jit(lambda *a: jw.pairwise_cost_matrix(*a, **kw))(J(pred), J(cs_g), J(box))
+    got = tw.pairwise_cost_matrix(T(pred), T(cs), T(box), **kw)
+    assert got.shape == (Q, G)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    empty = box.reshape(G, -1).sum(1) == 0
+    assert empty[0]
+    assert (got.numpy()[:, empty] == 0).all()
 
 
 # -- pseudo-mask update and the step's scalars --------------------------------
