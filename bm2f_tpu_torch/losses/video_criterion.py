@@ -6,8 +6,8 @@ package computes it (bm2f_tpu/losses/video_criterion.py):
   and its costs are taken over (point, frame): one clip-level assignment;
 - the mask losses take (instance, frame) pairs as their masks, with points
   drawn per frame, while `num_masks` stays the count of instances;
-- `num_masks` and the class CE's weight sums are the global batch's
-  (`criterion.label_denominators`), as in the image criterion.
+- `num_masks` and the class CE's weight sums are the global batch's, as in
+  the image criterion (`deep_supervision`, the loop both share).
 
 Every random point comes in through `points`, as `draw_points(cfg, L, B,
 generator, frames=T)` gives them, so that the tests can hand the criterion
@@ -20,17 +20,11 @@ from typing import Callable, Dict, Mapping, Tuple
 
 import torch
 
-from bm2f_tpu_torch.losses.criterion import (
-    SetCriterionConfig,
-    _loss_labels,
-    count_targets,
-    label_denominators,
-    point_mask_losses,
-)
+from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, point_mask_losses
+from bm2f_tpu_torch.losses.deep_supervision import StepTargets, deep_supervision
 from bm2f_tpu_torch.matching.hungarian import assign
-from bm2f_tpu_torch.matching.matcher import PAD_COST, point_costs
+from bm2f_tpu_torch.matching.matcher import class_cost, pad_costs, point_costs
 from bm2f_tpu_torch.ops.sampling import point_sample
-from bm2f_tpu_torch.utils import tracing
 
 
 def clip_channels_last(masks: torch.Tensor) -> torch.Tensor:
@@ -61,11 +55,8 @@ def video_matcher_costs(
     """The (B, Q, G) clip-level matching costs: the class cost, and the
     sigmoid-CE and dice costs over every (point, frame) of the clip."""
     B, Q, T = pred_masks.shape[:3]
-    K = pred_logits.shape[-1] - 1
     G = tgt_labels.shape[1]
-    prob = torch.softmax(pred_logits.float(), dim=-1)
-    labels = tgt_labels.long().clamp(0, K - 1)
-    c_class = -torch.gather(prob[..., :K], 2, labels[:, None, :].expand(-1, Q, -1))
+    c_class = class_cost(pred_logits, tgt_labels)
 
     def points(clip: torch.Tensor, n: int) -> torch.Tensor:
         """(B, H, W, n*T) -> (B, P*T, n), point-major over (point, frame)."""
@@ -75,23 +66,7 @@ def video_matcher_costs(
     pred_pts = points(clip_channels_last(pred_masks.float()), Q)
     c_mask, c_dice = point_costs(pred_pts, points(tgt_clip, G))
     C = cost_class * c_class + cost_mask * c_mask + cost_dice * c_dice
-    return torch.where(tgt_valid[:, None, :], C, torch.full_like(C, PAD_COST))
-
-
-def video_loss_masks(pred_masks, tgt_frames, tgt_valid, assignment, num_masks, cfg,
-                     cand, randc):
-    """Point-sampled sigmoid CE + dice of the matched (instance, frame)
-    masks. pred_masks (B, Q, T, h, w); tgt_frames (B*T, Hg, Wg, G),
-    `frame_major`; cand (B*T, n_cand, 2) and randc (B*T, n_rand, 2), drawn
-    per frame. The losses are summed over (instance, frame) and divided by
-    `num_masks`, the instances."""
-    B, Q, T, h, w = pred_masks.shape
-    G = tgt_valid.shape[1]
-    src = torch.gather(pred_masks, 1,
-                       assignment[:, :, None, None, None].expand(B, G, T, h, w)).float()
-    valid = tgt_valid[:, None, :].expand(B, T, G).reshape(B * T * G).float()  # (b, t, g)
-    return point_mask_losses(frame_major(src), tgt_frames, valid, num_masks, cfg,
-                             cand, randc)
+    return pad_costs(C, tgt_valid)
 
 
 def video_set_criterion(
@@ -107,43 +82,31 @@ def video_set_criterion(
     aux layers first. `assign_fn` and the tracing as in `set_criterion`. Returns
     (total_loss, {loss_ce, loss_mask, loss_dice, loss_ce_0, ...})."""
     tgt_labels, tgt_valid = targets["labels"], targets["valid"]
-    n_aux = outputs["aux_logits"].shape[0]
-    layers = [(outputs["aux_logits"][i], outputs["aux_masks"][i]) for i in range(n_aux)]
-    layers.append((outputs["pred_logits"], outputs["pred_masks"]))
     tgt = targets["masks"].float()
     tgt_clip = clip_channels_last(tgt).contiguous()
 
-    count_targets(tgt_valid)
+    def layer_costs(i, logits, masks):
+        return video_matcher_costs(
+            logits, masks, tgt_labels, tgt_clip, tgt_valid, points["match"][i],
+            cost_class=cfg.class_weight, cost_mask=cfg.mask_weight, cost_dice=cfg.dice_weight)
 
-    with tracing.span("train.matcher_costs"):
-        costs = torch.stack([
-            video_matcher_costs(
-                logits, masks, tgt_labels, tgt_clip, tgt_valid, points["match"][i],
-                cost_class=cfg.class_weight, cost_mask=cfg.mask_weight,
-                cost_dice=cfg.dice_weight)
-            for i, (logits, masks) in enumerate(layers)
-        ], 1)  # (B, L+1, Q, G)
-    del tgt_clip
-    with tracing.span("train.assign"):
-        assignment = assign_fn(costs)  # (B, L+1, G)
-
-    with tracing.span("train.losses"):
-        num_masks, labels, _ = label_denominators(layers, tgt_labels, tgt_valid, assignment, cfg)
+    def step_targets(assignment):
+        nonlocal tgt_clip
+        tgt_clip = None  # the matching is done: free the clip-major copy
         tgt_frames = frame_major(tgt).contiguous()
-        losses: Dict[str, torch.Tensor] = {}
-        ce_l, mask_l, dice_l = [], [], []
-        for i, (logits, masks) in enumerate(layers):
-            ce_l.append(_loss_labels(logits, *labels[i]))
-            loss_mask, loss_dice = video_loss_masks(
-                masks, tgt_frames, tgt_valid, assignment[:, i], num_masks, cfg,
-                points["cand"][i], points["rand"][i])
-            mask_l.append(loss_mask)
-            dice_l.append(loss_dice)
-            suffix = "" if i == len(layers) - 1 else f"_{i}"
-            losses[f"loss_ce{suffix}"] = ce_l[-1]
-            losses[f"loss_mask{suffix}"] = loss_mask
-            losses[f"loss_dice{suffix}"] = loss_dice
-        total = (cfg.class_weight * torch.stack(ce_l).sum()
-                 + cfg.mask_weight * torch.stack(mask_l).sum()
-                 + cfg.dice_weight * torch.stack(dice_l).sum())
-    return total, losses
+
+        def layer_losses(i, masks, asg, num_masks, sums):
+            # the matched (instance, frame) masks, on points drawn per frame;
+            # `num_masks` counts the instances
+            B, Q, T, h, w = masks.shape
+            G = tgt_valid.shape[1]
+            src = torch.gather(masks, 1,
+                               asg[:, :, None, None, None].expand(B, G, T, h, w)).float()
+            valid = tgt_valid[:, None, :].expand(B, T, G).reshape(B * T * G).float()  # (b, t, g)
+            return point_mask_losses(frame_major(src), tgt_frames, valid, num_masks, cfg,
+                                     points["cand"][i], points["rand"][i])
+
+        return StepTargets(layer_losses)
+
+    return deep_supervision(outputs, tgt_labels, tgt_valid, cfg, assign_fn, layer_costs,
+                            step_targets, cfg.loss_weights)

@@ -18,7 +18,7 @@ those would be ~0.5 GB each, about eight a layer.
 
 `num_masks`, the class CE's weight sums and the pairwise loss's weight sum
 are the global batch's, in one all-reduce a step under data parallelism
-(`criterion.label_denominators`).
+(`deep_supervision`, the loop every set criterion shares).
 """
 
 from __future__ import annotations
@@ -27,12 +27,8 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from bm2f_tpu_torch.losses.criterion import (
-    SetCriterionConfig,
-    _loss_labels,
-    count_targets,
-    label_denominators,
-)
+from bm2f_tpu_torch.losses.criterion import SetCriterionConfig
+from bm2f_tpu_torch.losses.deep_supervision import StepTargets, deep_supervision
 from bm2f_tpu_torch.losses.weaksup import (
     pairwise_cost_matrix,
     pairwise_weights,
@@ -42,10 +38,47 @@ from bm2f_tpu_torch.losses.weaksup import (
     weighted_pairwise_loss,
 )
 from bm2f_tpu_torch.matching.hungarian import assign
-from bm2f_tpu_torch.matching.matcher import PAD_COST
+from bm2f_tpu_torch.matching.matcher import class_cost, pad_costs
 from bm2f_tpu_torch.utils import tracing
 
-_BOUNDS = ("left_bounds", "right_bounds", "top_bounds", "bottom_bounds")
+# the projection bounds of a box target (`target_prep`)
+BOUNDS = ("left_bounds", "right_bounds", "top_bounds", "bottom_bounds")
+
+
+def box_mask_costs(masks: torch.Tensor, box_masks: torch.Tensor,
+                   bounds: Mapping[str, torch.Tensor], color_similarity: torch.Tensor,
+                   acc: Optional[torch.Tensor] = None, *, cost_projection: float,
+                   cost_pairwise: float, **pair_kw) -> torch.Tensor:
+    """`acc` (when given) plus one image's (Q, G) projection cost, plus its
+    pairwise cost (`pair_kw` its keywords) when `cost_pairwise` > 0, each
+    added in its turn. masks (Q, h, w) logits, box_masks (G, h, w), bounds
+    {BOUNDS: (G, h|w)}, color_similarity (h, w, K). Traced as the spans
+    "costs.projection" and "costs.pairwise"."""
+    with tracing.span("costs.projection"):
+        c = cost_projection * projection_cost_matrix(masks, box_masks, bounds)
+        if acc is not None:
+            c = acc + c
+    if cost_pairwise > 0.0:
+        with tracing.span("costs.pairwise"):
+            c = c + cost_pairwise * pairwise_cost_matrix(masks, color_similarity, box_masks,
+                                                         **pair_kw)
+    return c
+
+
+def valid_rows(targets: Mapping[str, torch.Tensor], box_masks: torch.Tensor,
+               color_thresh: float, pairwise: bool):
+    """The valid targets' rows (b, g), one host synchronise a step: (b_idx,
+    g_idx, box_masks (N, h, w), bounds, ones (N,), the pairwise weights (N,
+    h, w, K) or None), a video target's frames a row each."""
+    b_idx, g_idx = targets["valid"].nonzero(as_tuple=True)
+    box_v = box_masks[b_idx, g_idx].flatten(0, -3)
+    bounds_v = {k: targets[k][b_idx, g_idx].flatten(0, -2) for k in BOUNDS}
+    ones_v = torch.ones(box_v.shape[0], device=box_v.device)
+    pair_w = None
+    if pairwise:  # the same edges in every layer
+        pair_w = pairwise_weights(targets["color_similarity"][b_idx].flatten(0, -4), box_v,
+                                  ones_v, color_thresh, torch.float32)
+    return b_idx, g_idx, box_v, bounds_v, ones_v, pair_w
 
 
 @torch.no_grad()
@@ -58,30 +91,14 @@ def weaksup_matcher_costs(pred_logits: torch.Tensor, pred_masks: torch.Tensor,
     pairwise cost when `cost_pairwise` > 0; `PAD_COST` on invalid targets.
     pred_logits (B, Q, K+1), pred_masks (B, Q, h, w). Traced as the spans
     "costs.projection" and "costs.pairwise", an image each."""
-    B, Q = pred_logits.shape[:2]
-    K = pred_logits.shape[-1] - 1
-    labels, valid = targets["labels"], targets["valid"]
-    G = labels.shape[1]
-    prob = torch.softmax(pred_logits.float(), dim=-1)
-    labels_safe = labels.long().clamp(0, K - 1)
-    c_class = -prob[..., :K].gather(2, labels_safe[:, None, :].expand(B, Q, G))
-
+    c_class = class_cost(pred_logits, targets["labels"])
     masks = pred_masks.float()
-    c_mask = []
-    for b in range(B):
-        bounds = {k: targets[k][b] for k in _BOUNDS}
-        with tracing.span("costs.projection"):
-            c = cost_projection * projection_cost_matrix(masks[b], targets["box_masks"][b],
-                                                         bounds)
-        if cost_pairwise > 0.0:
-            with tracing.span("costs.pairwise"):
-                c = c + cost_pairwise * pairwise_cost_matrix(
-                    masks[b], targets["color_similarity"][b], targets["box_masks"][b],
-                    color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
-                    warmup_factor=warmup_factor)
-        c_mask.append(c)
-    C = cost_class * c_class + torch.stack(c_mask)
-    return torch.where(valid[:, None, :], C, torch.full_like(C, PAD_COST))
+    c_mask = [box_mask_costs(
+        masks[b], targets["box_masks"][b], {k: targets[k][b] for k in BOUNDS},
+        targets["color_similarity"][b], cost_projection=cost_projection,
+        cost_pairwise=cost_pairwise, color_thresh=color_thresh, kernel_size=kernel_size,
+        dilation=dilation, warmup_factor=warmup_factor) for b in range(masks.shape[0])]
+    return pad_costs(cost_class * c_class + torch.stack(c_mask), targets["valid"])
 
 
 def weaksup_set_criterion(
@@ -111,60 +128,37 @@ def weaksup_set_criterion(
     `criterion.set_criterion` is."""
     use_pairwise = "pairwise" in sup_type
     labels, valid = targets["labels"], targets["valid"]
-    B, G = labels.shape
-    layers = [(outputs["aux_logits"][i], outputs["aux_masks"][i])
-              for i in range(outputs["aux_logits"].shape[0])]
-    layers.append((outputs["pred_logits"], outputs["pred_masks"]))
+    pair_kw = dict(kernel_size=kernel_size, dilation=dilation, warmup_factor=warmup_factor)
 
-    with tracing.span("train.matcher_costs"):
-        costs = torch.stack([
-            weaksup_matcher_costs(
-                logits, masks, targets, cost_class=cfg.class_weight,
-                cost_projection=projection_weight,
-                cost_pairwise=pairwise_weight if use_pairwise else 0.0,
-                color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
-                warmup_factor=warmup_factor)
-            for logits, masks in layers], 1)  # (B, L+1, Q, G)
-    with tracing.span("train.assign"):
-        assignment = assign_fn(costs)  # (B, L+1, G)
+    def layer_costs(i, logits, masks):
+        return weaksup_matcher_costs(
+            logits, masks, targets, cost_class=cfg.class_weight,
+            cost_projection=projection_weight,
+            cost_pairwise=pairwise_weight if use_pairwise else 0.0,
+            color_thresh=color_thresh, **pair_kw)
 
-    with tracing.span("train.losses"):
+    def step_targets(assignment):
         box_masks = targets["box_masks"]
         if mask_update_pix_thr is not None:
             box_masks = update_box_masks(outputs["pred_masks"].detach().float(),
                                          assignment[:, -1], box_masks, mask_update_pix_thr)
-        # the valid targets' rows (b, g), one host synchronise a step
-        b_idx, g_idx = valid.nonzero(as_tuple=True)
-        count_targets(valid, b_idx.shape[0])
-        box_v = box_masks[b_idx, g_idx]  # (N, h, w)
-        bounds_v = {k: targets[k][b_idx, g_idx] for k in _BOUNDS}
-        ones_v = torch.ones(b_idx.shape[0], device=valid.device)
-        pair_sums = ()
-        if use_pairwise:
-            # the same edges in every layer: (N, h, w, K)
-            pair_w = pairwise_weights(targets["color_similarity"][b_idx], box_v, ones_v,
-                                      color_thresh, torch.float32)
-            pair_sums = (pair_w.sum(),)
-        num_masks, ce_labels, pair_sums = label_denominators(layers, labels, valid, assignment,
-                                                             cfg, *pair_sums)
+        b_idx, g_idx, box_v, bounds_v, ones_v, pair_w = valid_rows(targets, box_masks,
+                                                                   color_thresh, use_pairwise)
 
-        losses: Dict[str, torch.Tensor] = {}
-        ce_l, proj_l, pair_l = [], [], []
-        for i, (logits, masks) in enumerate(layers):
-            asg = assignment[:, i]
-            ce_l.append(_loss_labels(logits, *ce_labels[i]))
+        def layer_losses(i, masks, asg, num_masks, sums):
             src = masks[b_idx, asg[b_idx, g_idx]].float()  # (N, h, w)
-            proj_l.append(projection_loss(src, box_v, bounds_v, ones_v, num_masks))
-            suffix = "" if i == len(layers) - 1 else f"_{i}"
-            losses[f"loss_ce{suffix}"] = ce_l[-1]
-            losses[f"loss_mask_projection{suffix}"] = proj_l[-1]
+            terms = {"loss_mask_projection": projection_loss(src, box_v, bounds_v, ones_v,
+                                                             num_masks)}
             if use_pairwise:
-                pair_l.append(weighted_pairwise_loss(
-                    src, pair_w, pair_sums[0], num_masks, kernel_size=kernel_size,
-                    dilation=dilation, warmup_factor=warmup_factor))
-                losses[f"loss_pairwise{suffix}"] = pair_l[-1]
-        total = cfg.class_weight * torch.stack(ce_l).sum() + projection_weight * torch.stack(
-            proj_l).sum()
-        if use_pairwise:
-            total = total + pairwise_weight * torch.stack(pair_l).sum()
-    return total, losses
+                terms["loss_pairwise"] = weighted_pairwise_loss(src, pair_w, sums[0],
+                                                                num_masks, **pair_kw)
+            return terms
+
+        return StepTargets(layer_losses, (pair_w.sum(),) if use_pairwise else (),
+                           b_idx.shape[0])
+
+    weights = {"loss_ce": cfg.class_weight, "loss_mask_projection": projection_weight}
+    if use_pairwise:
+        weights["loss_pairwise"] = pairwise_weight
+    return deep_supervision(outputs, labels, valid, cfg, assign_fn, layer_costs, step_targets,
+                            weights)

@@ -19,7 +19,7 @@ targets' rows only: the same numbers as JAX's masked sums over all B x G
 rows, up to summation order; and `num_masks`, the class CE's, the spatial
 pairwise loss's and the temporal loss's denominators are the global
 batch's, in one all-reduce a step under data parallelism
-(`criterion.label_denominators`).
+(`deep_supervision`, the loop every set criterion shares).
 """
 
 from __future__ import annotations
@@ -29,24 +29,13 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from bm2f_tpu_torch.losses.criterion import (
-    SetCriterionConfig,
-    _loss_labels,
-    count_targets,
-    label_denominators,
-)
-from bm2f_tpu_torch.losses.weaksup import (
-    pairwise_cost_matrix,
-    pairwise_weights,
-    projection_cost_matrix,
-    projection_loss,
-    weighted_pairwise_loss,
-)
-from bm2f_tpu_torch.parallel import data_size
-from bm2f_tpu_torch.losses.weaksup_criterion import _BOUNDS
+from bm2f_tpu_torch.losses.criterion import SetCriterionConfig
+from bm2f_tpu_torch.losses.deep_supervision import StepTargets, deep_supervision
+from bm2f_tpu_torch.losses.weaksup import projection_loss, weighted_pairwise_loss
+from bm2f_tpu_torch.losses.weaksup_criterion import BOUNDS, box_mask_costs, valid_rows
 from bm2f_tpu_torch.matching.hungarian import assign
-from bm2f_tpu_torch.matching.matcher import PAD_COST
-from bm2f_tpu_torch.utils import tracing
+from bm2f_tpu_torch.matching.matcher import class_cost, pad_costs
+from bm2f_tpu_torch.parallel import data_size
 
 # ---------------------------------------------------------------------------
 # DINOv2 temporal pairs
@@ -144,32 +133,21 @@ def video_weaksup_matcher_costs(pred_logits: torch.Tensor, pred_masks: torch.Ten
     over the clip; `PAD_COST` on invalid targets. pred_masks (B, Q, T, h,
     w). Traced as the spans "costs.projection" and "costs.pairwise", a frame
     each."""
-    B, Q, T = pred_masks.shape[:3]
-    K = pred_logits.shape[-1] - 1
-    labels, valid = targets["labels"], targets["valid"]
-    G = labels.shape[1]
-    prob = torch.softmax(pred_logits.float(), dim=-1)
-    labels_safe = labels.long().clamp(0, K - 1)
-    c_class = -prob[..., :K].gather(2, labels_safe[:, None, :].expand(B, Q, G))
-
+    c_class = class_cost(pred_logits, targets["labels"])
     masks = pred_masks.float()
+    B, _, T = masks.shape[:3]
     c_mask = []
     for b in range(B):
-        c = 0.0
+        c = None
         for t in range(T):
-            box = targets["box_masks"][b, :, t]
-            bounds = {k: targets[k][b, :, t] for k in _BOUNDS}
-            with tracing.span("costs.projection"):
-                c = c + cost_projection * projection_cost_matrix(masks[b, :, t], box, bounds)
-            if cost_pairwise > 0.0:
-                with tracing.span("costs.pairwise"):
-                    c = c + cost_pairwise * pairwise_cost_matrix(
-                        masks[b, :, t], targets["color_similarity"][b, t], box,
-                        color_thresh=color_thresh, kernel_size=kernel_size,
-                        dilation=dilation, warmup_factor=warmup_factor)
+            c = box_mask_costs(
+                masks[b, :, t], targets["box_masks"][b, :, t],
+                {k: targets[k][b, :, t] for k in BOUNDS}, targets["color_similarity"][b, t], c,
+                cost_projection=cost_projection, cost_pairwise=cost_pairwise,
+                color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
+                warmup_factor=warmup_factor)
         c_mask.append(c)
-    C = cost_class * c_class + torch.stack(c_mask)
-    return torch.where(valid[:, None, :], C, torch.full_like(C, PAD_COST))
+    return pad_costs(cost_class * c_class + torch.stack(c_mask), targets["valid"])
 
 
 def video_weaksup_set_criterion(
@@ -201,76 +179,52 @@ def video_weaksup_set_criterion(
     use_temp = "temporal_pairwise" in sup_type and "temporal_pairs" in targets
     labels, valid = targets["labels"], targets["valid"]
     T, h, w = outputs["pred_masks"].shape[2:]
-    layers = [(outputs["aux_logits"][i], outputs["aux_masks"][i])
-              for i in range(outputs["aux_logits"].shape[0])]
-    layers.append((outputs["pred_logits"], outputs["pred_masks"]))
+    pair_kw = dict(kernel_size=kernel_size, dilation=dilation, warmup_factor=warmup_factor)
 
-    with tracing.span("train.matcher_costs"):
-        costs = torch.stack([
-            video_weaksup_matcher_costs(
-                logits, masks, targets, cost_class=cfg.class_weight,
-                cost_projection=projection_weight,
-                cost_pairwise=pairwise_weight if use_spat else 0.0,
-                color_thresh=color_thresh, kernel_size=kernel_size, dilation=dilation,
-                warmup_factor=warmup_factor)
-            for logits, masks in layers], 1)  # (B, L+1, Q, G)
-    with tracing.span("train.assign"):
-        assignment = assign_fn(costs)  # (B, L+1, G)
+    def layer_costs(i, logits, masks):
+        return video_weaksup_matcher_costs(
+            logits, masks, targets, cost_class=cfg.class_weight,
+            cost_projection=projection_weight,
+            cost_pairwise=pairwise_weight if use_spat else 0.0,
+            color_thresh=color_thresh, **pair_kw)
 
-    with tracing.span("train.losses"):
-        # the valid targets' rows (b, g), one host synchronise a step; each row
-        # is T frames
-        b_idx, g_idx = valid.nonzero(as_tuple=True)
+    def step_targets(assignment):
+        b_idx, g_idx, box_v, bounds_v, ones_v, pair_w = valid_rows(
+            targets, targets["box_masks"], color_thresh, use_spat)
         n = b_idx.shape[0]
-        count_targets(valid, n)
-        box_v = targets["box_masks"][b_idx, g_idx].reshape(n * T, h, w)
-        bounds_v = {k: targets[k][b_idx, g_idx].flatten(0, 1) for k in _BOUNDS}
-        ones_v = torch.ones(n * T, device=valid.device)
-        extra = []
-        if use_spat:
-            # the same edges in every layer: (n*T, h, w, K)
-            pair_w = pairwise_weights(targets["color_similarity"][b_idx].flatten(0, 1),
-                                      box_v, ones_v, color_thresh, torch.float32)
-            extra.append(pair_w.sum())
+        extra = [pair_w.sum()] if use_spat else []
         if use_temp:
             pairs_v = targets["temporal_pairs"][b_idx, g_idx]  # (n, T-1, Kp, 4)
             pv_v = targets["temporal_pairs_valid"][b_idx, g_idx]
             extra.append(pv_v.to(torch.float32).sum())
-        num_masks, ce_labels, extra = label_denominators(layers, labels, valid, assignment,
-                                                         cfg, *extra)
-        pair_sum = extra[0] if use_spat else None
-        temp_sum = extra[-1] if use_temp else None
 
-        losses: Dict[str, torch.Tensor] = {}
-        ce_l, proj_l, pair_l, temp_l = [], [], [], []
-        for i, (logits, masks) in enumerate(layers):
-            asg = assignment[:, i]
-            ce_l.append(_loss_labels(logits, *ce_labels[i]))
+        def layer_losses(i, masks, asg, num_masks, sums):
             src = masks[b_idx, asg[b_idx, g_idx]].float()  # (n, T, h, w)
             src_ft = src.reshape(n * T, h, w)
-            proj_l.append(projection_loss(src_ft, box_v, bounds_v, ones_v, num_masks * T))
-            suffix = "" if i == len(layers) - 1 else f"_{i}"
-            losses[f"loss_ce{suffix}"] = ce_l[-1]
-            losses[f"loss_mask_projection{suffix}"] = proj_l[-1]
+            terms = {"loss_mask_projection": projection_loss(src_ft, box_v, bounds_v, ones_v,
+                                                             num_masks * T)}
             if use_spat:
-                pair_l.append(weighted_pairwise_loss(
-                    src_ft, pair_w, pair_sum, num_masks * T, kernel_size=kernel_size,
-                    dilation=dilation, warmup_factor=warmup_factor))
-                losses[f"loss_mask_spatial_pairwise{suffix}"] = pair_l[-1]
+                terms["loss_mask_spatial_pairwise"] = weighted_pairwise_loss(
+                    src_ft, pair_w, sums[0], num_masks * T, **pair_kw)
             if use_temp:
-                temp_l.append(temporal_pairwise_loss(src, pairs_v, pv_v, warmup_factor,
-                                                     valid_sum=temp_sum))
-                losses[f"loss_mask_temporal_pairwise{suffix}"] = temp_l[-1]
-        total = (cfg.class_weight * torch.stack(ce_l).sum()
-                 + projection_weight * torch.stack(proj_l).sum())
-        if use_spat:
-            total = total + pairwise_weight * torch.stack(pair_l).sum()
-        if use_temp:
-            total = total + temporal_pairwise_weight * torch.stack(temp_l).sum()
-            # the share of DINO matches that survive (reference
-            # video_maskformer_model.py:361-369 loss_pos_temp_pair_prop): this
-            # rank's share of the global batch's mean, which the trainer's sum
-            # of the ranks' metrics completes (every rank holds as many pairs)
-            losses["temp_pair_valid_prop"] = (targets["temporal_pairs_valid"].float().mean()
-                                              / data_size())
+                terms["loss_mask_temporal_pairwise"] = temporal_pairwise_loss(
+                    src, pairs_v, pv_v, warmup_factor, valid_sum=sums[-1])
+            return terms
+
+        return StepTargets(layer_losses, tuple(extra), n)
+
+    weights = {"loss_ce": cfg.class_weight, "loss_mask_projection": projection_weight}
+    if use_spat:
+        weights["loss_mask_spatial_pairwise"] = pairwise_weight
+    if use_temp:
+        weights["loss_mask_temporal_pairwise"] = temporal_pairwise_weight
+    total, losses = deep_supervision(outputs, labels, valid, cfg, assign_fn, layer_costs,
+                                     step_targets, weights)
+    if use_temp:
+        # the share of DINO matches that survive (reference
+        # video_maskformer_model.py:361-369 loss_pos_temp_pair_prop): this
+        # rank's share of the global batch's mean, which the trainer's sum
+        # of the ranks' metrics completes (every rank holds as many pairs)
+        losses["temp_pair_valid_prop"] = (targets["temporal_pairs_valid"].float().mean()
+                                          / data_size())
     return total, losses

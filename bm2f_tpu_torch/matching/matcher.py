@@ -6,7 +6,8 @@ them (bm2f_tpu/matching/matcher.py:30-118):
 - the class, sigmoid-CE and dice costs are batched einsums over random
   sample points shared by all queries and targets of an image;
 - padding targets get the constant `PAD_COST`, so the rectangular LSA gives
-  them leftover queries, which the criterion then ignores.
+  them leftover queries, which the criterion then ignores (`pad_costs`,
+  with `class_cost` every matcher's).
 """
 
 from __future__ import annotations
@@ -17,6 +18,21 @@ import torch.nn.functional as F
 from bm2f_tpu_torch.ops.sampling import point_sample
 
 PAD_COST = 1e6
+
+
+def class_cost(pred_logits: torch.Tensor, tgt_labels: torch.Tensor) -> torch.Tensor:
+    """The (B, Q, G) class cost -P(label) of (B, Q, K+1) logits against (B,
+    G) labels (any value where a target is invalid: clamped to a class)."""
+    K = pred_logits.shape[-1] - 1
+    prob = torch.softmax(pred_logits.float(), dim=-1)
+    labels = tgt_labels.long().clamp(0, K - 1)
+    return -torch.gather(prob[..., :K], 2, labels[:, None, :].expand(-1, prob.shape[1], -1))
+
+
+def pad_costs(C: torch.Tensor, tgt_valid: torch.Tensor) -> torch.Tensor:
+    """The (B, Q, G) costs with `PAD_COST` in the columns of invalid
+    targets."""
+    return torch.where(tgt_valid[:, None, :], C, torch.full_like(C, PAD_COST))
 
 
 def point_costs(pred_pts: torch.Tensor, tgt_pts: torch.Tensor):
@@ -50,13 +66,9 @@ def hungarian_matcher_costs(
 ) -> torch.Tensor:
     """The (B, Q, G) matching cost matrix. Takes the targets NHWC, as the
     criterion samples them for every layer."""
-    K = pred_logits.shape[-1] - 1
-    prob = torch.softmax(pred_logits.float(), dim=-1)
-    labels = tgt_labels.long().clamp(0, K - 1)
-    c_class = -torch.gather(
-        prob[..., :K], 2, labels[:, None, :].expand(-1, prob.shape[1], -1))
+    c_class = class_cost(pred_logits, tgt_labels)
     pred_pts = point_sample(pred_masks.float().permute(0, 2, 3, 1), coords)
     tgt_pts = point_sample(tgt_nhwc, coords)
     c_mask, c_dice = point_costs(pred_pts, tgt_pts)
     C = cost_class * c_class + cost_mask * c_mask + cost_dice * c_dice
-    return torch.where(tgt_valid[:, None, :], C, torch.full_like(C, PAD_COST))
+    return pad_costs(C, tgt_valid)

@@ -1,17 +1,10 @@
 """The train step on one device: the counterpart of the JAX package's
-`make_train_step` / `Trainer` (bm2f_tpu/train/trainer.py:36-167), dispatched
-on `task` and `model.loss.sup_type` as the JAX `compute_loss` is. Images:
-"mask" (`losses.criterion.set_criterion`), and the box-supervised
-"mask_projection" and "mask_projection_and_pairwise"
-(`losses.weaksup_criterion.weaksup_set_criterion` on targets built from the
-batch's raw images and box masks, `losses.target_prep`). Video (`task`
-"video", the clip model `video.build_video_model` on (B, T, H, W, 3)
-batches): "mask" (`losses.video_criterion.video_set_criterion`), and
-"mask_projection", "mask_projection_and_spatial_pairwise" and
-"mask_projection_and_spatial_pairwise_and_temporal_pairwise"
-(`losses.weaksup_video.video_weaksup_set_criterion` on
-`target_prep.build_video_weaksup_targets`, the temporal pairs from the
-batch's "dino_feats" when it has them).
+`make_train_step` / `Trainer` (bm2f_tpu/train/trainer.py:36-167). The
+criterion is the one `losses.build.build_criterion` picks from `task` and
+`model.loss.sup_type`, as the JAX `compute_loss` is dispatched: images
+(`build_model`) and video (`task` "video", the clip model
+`video.build_video_model` on (B, T, H, W, 3) batches), mask- or
+box-supervised.
 
 A step is: forward, matcher costs, the assignment (`train.matcher`:
 `matching.hungarian.make_assign_fn`), losses, backward, clip + AdamW. It
@@ -78,15 +71,7 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from bm2f_tpu_torch.config import Config
-from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, draw_points, set_criterion
-from bm2f_tpu_torch.losses.target_prep import (
-    build_video_weaksup_targets,
-    build_weaksup_targets,
-)
-from bm2f_tpu_torch.losses.video_criterion import video_set_criterion
-from bm2f_tpu_torch.losses.weaksup import mask_update_pix_thr, pairwise_warmup_factor
-from bm2f_tpu_torch.losses.weaksup_criterion import weaksup_set_criterion
-from bm2f_tpu_torch.losses.weaksup_video import video_weaksup_set_criterion
+from bm2f_tpu_torch.losses.build import build_criterion, criterion_config
 from bm2f_tpu_torch.matching.hungarian import make_assign_fn
 from bm2f_tpu_torch.models.maskformer import build_model, normalize_images
 from bm2f_tpu_torch.parallel import global_sum, init_mesh
@@ -102,31 +87,6 @@ log = logging.getLogger(__name__)
 STAGES = {"train.forward": "forward", "train.matcher_costs": "matcher_costs",
           "train.assign": "assign", "train.losses": "losses",
           "train.backward": "backward", "train.optimizer": "optimizer"}
-# the values of `model.loss.sup_type` (config.LossConfig) for each task
-IMAGE_SUP_TYPES = ("mask", "mask_projection", "mask_projection_and_pairwise")
-VIDEO_SUP_TYPES = ("mask", "mask_projection", "mask_projection_and_spatial_pairwise",
-                   "mask_projection_and_spatial_pairwise_and_temporal_pairwise")
-
-
-def criterion_config(cfg: Config) -> SetCriterionConfig:
-    lc = cfg.model.loss
-    return SetCriterionConfig(
-        num_classes=cfg.model.num_classes,
-        eos_coef=lc.no_object_weight,
-        class_weight=lc.class_weight,
-        mask_weight=lc.mask_weight,
-        dice_weight=lc.dice_weight,
-        num_points=lc.train_num_points,
-        oversample_ratio=lc.oversample_ratio,
-        importance_sample_ratio=lc.importance_sample_ratio,
-    )
-
-
-def _check_trainable(cfg: Config) -> None:
-    sup = cfg.model.loss.sup_type
-    known = VIDEO_SUP_TYPES if cfg.task == "video" else IMAGE_SUP_TYPES
-    if sup not in known:
-        raise ValueError(f"sup_type {sup!r} for task {cfg.task!r}: one of {known}")
 
 
 def synthetic_batch(batch: int, size: int, instances: int, seed: int,
@@ -201,9 +161,12 @@ class Trainer:
     (the weak criteria draw none)."""
 
     def __init__(self, cfg: Config, device="cuda", seed: int = 0):
-        _check_trainable(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # through the attribute, so that `assign_fn` may be swapped on the trainer
+        self.criterion = build_criterion(cfg, lambda costs: self.assign_fn(costs),
+                                         self.generator)
         self.video = cfg.task == "video"
         self.seed = seed
         self.mesh = init_mesh(cfg.mesh.model, cfg.mesh.data)
@@ -226,7 +189,6 @@ class Trainer:
         self.assign_fn = make_assign_fn(cfg)
         self.optimizer = AdamW(self.model, cfg.train.optimizer, sharded=self.splits,
                                model_group=self.mesh.model_group)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         log.info("training without rematerialisation: each deformable "
                  "encoder layer saves only its inputs for K2")
 
@@ -294,47 +256,7 @@ class Trainer:
         with tracing.span("train.forward"):
             x = normalize_images(batch["images"], self.cfg.model)
             out = self.forward(x, deform_impl=deform_impl)
-        if self.cfg.model.loss.sup_type != "mask":
-            weak_loss = self._weak_video_loss if self.video else self._weak_loss
-            return weak_loss(out, batch)
-        frames = out["pred_masks"].shape[2] if self.video else 1
-        if points is None:
-            points = draw_points(self.ccfg, out["aux_logits"].shape[0] + 1,
-                                 out["pred_logits"].shape[0], self.generator, frames)
-        targets = {k: batch[k] for k in ("labels", "masks", "valid")}
-        criterion = video_set_criterion if self.video else set_criterion
-        return criterion(out, targets, self.ccfg, points, self.assign_fn)
-
-    def _weak_video_loss(self, out, batch):
-        lc, weak = self.cfg.model.loss, self.cfg.model.loss.weak
-        pw = weak.pairwise
-        targets = build_video_weaksup_targets(
-            batch["images"], batch["labels"], batch["masks"], batch["valid"],
-            batch.get("dino_feats"), kernel_size=pw.size, dilation=pw.dilation)
-        return video_weaksup_set_criterion(
-            out, targets, self.ccfg, sup_type=lc.sup_type,
-            projection_weight=weak.projection_weight, pairwise_weight=weak.pairwise_weight,
-            temporal_pairwise_weight=weak.temporal_pairwise_weight,
-            color_thresh=pw.color_thresh, kernel_size=pw.size, dilation=pw.dilation,
-            warmup_factor=pairwise_warmup_factor(self.step_count, pw.warmup_iters),
-            assign_fn=self.assign_fn)
-
-    def _weak_loss(self, out, batch):
-        lc, weak = self.cfg.model.loss, self.cfg.model.loss.weak
-        pw = weak.pairwise
-        targets = build_weaksup_targets(batch["images"], batch["labels"], batch["masks"],
-                                        batch["valid"], kernel_size=pw.size,
-                                        dilation=pw.dilation)
-        pix_thr = None
-        if weak.mask_update_enabled:
-            pix_thr = mask_update_pix_thr(self.step_count, self.cfg.train.optimizer.max_iter,
-                                          weak.mask_update_steps, weak.mask_update_pix_thrs)
-        return weaksup_set_criterion(
-            out, targets, self.ccfg, sup_type=lc.sup_type,
-            projection_weight=weak.projection_weight, pairwise_weight=weak.pairwise_weight,
-            color_thresh=pw.color_thresh, kernel_size=pw.size, dilation=pw.dilation,
-            warmup_factor=pairwise_warmup_factor(self.step_count, pw.warmup_iters),
-            assign_fn=self.assign_fn, mask_update_pix_thr=pix_thr)
+        return self.criterion(out, batch, points, self.step_count)
 
     def step(self, batch: Mapping[str, torch.Tensor],
              points: Optional[Mapping[str, torch.Tensor]] = None,

@@ -137,14 +137,14 @@ def _patched(variant: str):
     grad_norm's sum by one that counts each replicated parameter T times."""
     from torch.distributed.algorithms.ddp_comm_hooks.default_hooks import allreduce_hook
 
-    from bm2f_tpu_torch.losses import criterion
+    from bm2f_tpu_torch.losses import deep_supervision
     from bm2f_tpu_torch.parallel import tp as tparallel
     from bm2f_tpu_torch.train import optim, trainer
 
     if variant == "ours":
         return []
     if variant == "num_masks_only":
-        return [(criterion, "global_sum", _upstream_denominators)]
+        return [(deep_supervision, "global_sum", _upstream_denominators)]
     if variant == "mean_grads":
         return [(trainer, "sum_gradients", allreduce_hook)]
     if variant == "no_f_backward":
