@@ -9,7 +9,18 @@ losses with deep supervision (reference: mask2former/modeling/criterion.py:
 - candidate and random points are shared across the masks of an image, and
   the importance-selected points enter the loss as a 0/1 weight over the
   candidates: a threshold plus an index-order tie rank selects exactly the
-  set `jax.lax.top_k` selects (lower index first among equal values).
+  set `jax.lax.top_k` selects (lower index first among equal values);
+- the mask losses are taken over the occupied slots only, the first G' of
+  the G (`occupied_slots`): the JAX package computes every slot and
+  multiplies the padding by 0, so the numbers are the same up to summation
+  order, and no (B, G, h, w) matched masks of padding, their point samples
+  or their backward are made. The matched masks are chosen by (layer,
+  image, query) row (`matched_masks`), so that their backward is a
+  deterministic `index_put_` of rows, not the coordinate sort of a
+  scattered `torch.gather`;
+- the mask losses of all layers are computed at once, once a step
+  (`point_mask_losses` over the layers' stacked matched masks): the same
+  numbers as a layer at a time, in a tenth of the launches.
 
 Every random point comes in through `points` (see `draw_points`), so that a
 run is reproducible from a `torch.Generator` and the tests can hand the
@@ -108,30 +119,58 @@ def _importance_weights(pred_c: torch.Tensor, n_imp: int) -> torch.Tensor:
     return w_sel.reshape(B, G, n_cand).transpose(1, 2)
 
 
-def point_mask_losses(src_nhwc, tgt_nhwc, valid, num_masks, cfg, cand, randc):
-    """The sigmoid CE and dice losses of the matched mask logits `src_nhwc`
-    (N, h, w, G) against the targets `tgt_nhwc` (N, Hg, Wg, G), on the
-    candidate points `cand` (N, n_cand, 2) (the most uncertain
-    `cfg.n_importance` of them) and the random points `randc` (N, n_rand,
-    2) of each of the N images; `valid` (N * G,) weights each mask; each
-    loss is summed over the masks and divided by `num_masks`. Returns
-    {loss_mask, loss_dice}."""
-    pred_c = point_sample(src_nhwc, cand)  # (N, n_cand, G)
-    with torch.no_grad():
-        tgt_c = point_sample(tgt_nhwc, cand)
+def occupied_slots(valid: torch.Tensor) -> Tuple[int, int]:
+    """(the valid targets' count, G' = 1 + the highest slot that holds a
+    valid target in any image, 0 where none does) of the (B, G) `valid`, in
+    one host read. Slots from G' on are padding in every image."""
+    slot = torch.arange(1, valid.shape[1] + 1, device=valid.device)
+    n_valid, occupied = torch.stack([valid.sum(), (valid.any(0) * slot).max()]).tolist()
+    return n_valid, occupied
+
+
+def matched_masks(outputs: Mapping[str, torch.Tensor], assignment: torch.Tensor) -> torch.Tensor:
+    """The matched mask logits of every layer, aux layers first: (L+1, B,
+    G', ...) from `outputs`' aux_masks (L, B, Q, ...) and pred_masks (B, Q,
+    ...) under the (B, L+1, G') `assignment`, chosen by (layer, image,
+    query) row."""
+    aux, final = outputs["aux_masks"], outputs["pred_masks"]
+    L, B = aux.shape[:2]
+    rows = torch.arange(B, device=final.device)[:, None]
+    layers = torch.arange(L, device=final.device)[:, None, None]
+    return torch.cat([aux[layers, rows, assignment[:, :L].transpose(0, 1)],
+                      final[rows, assignment[:, L]][None]])
+
+
+def point_mask_losses(src_nhwc, tgt_nhwc, valid, cfg, cand, randc):
+    """The sigmoid CE and dice losses of L layers' matched mask logits
+    `src_nhwc` (L, N, h, w, G) against the targets `tgt_nhwc` (N, Hg, Wg,
+    G), on each layer's candidate points `cand` (L, N, n_cand, 2) (the most
+    uncertain `cfg.n_importance` of them) and random points `randc` (L, N,
+    n_rand, 2) of each of the N images; `valid` (N * G,) weights each mask.
+    Returns {loss_mask, loss_dice}, each (L,): a layer's loss summed over
+    its masks, not yet divided by `num_masks`."""
+    L, N = src_nhwc.shape[:2]
+    src = src_nhwc.reshape(L * N, *src_nhwc.shape[2:])
+
+    def sample(coords):
+        """(the layers' samples (L*N, n, G), the targets' samples there)"""
+        n = coords.shape[2]
+        pred = point_sample(src, coords.reshape(L * N, n, 2))
+        with torch.no_grad():  # the targets once at every layer's points
+            tgt = point_sample(tgt_nhwc, coords.transpose(0, 1).reshape(N, L * n, 2))
+            tgt = tgt.reshape(N, L, n, -1).transpose(0, 1).reshape(L * N, n, -1)
+        return pred, tgt
+
+    pred_c, tgt_c = sample(cand)
     w_sel = _importance_weights(pred_c, cfg.n_importance)
     ce_s, p_s, pt_s, t_s = _masked_sums(pred_c, tgt_c, w_sel)
-    if randc.shape[1] > 0:
-        pred_r = point_sample(src_nhwc, randc)
-        with torch.no_grad():
-            tgt_r = point_sample(tgt_nhwc, randc)
-        ce_r, p_r, pt_r, t_r = _masked_sums(pred_r, tgt_r, 1.0)
+    if randc.shape[2] > 0:
+        ce_r, p_r, pt_r, t_r = _masked_sums(*sample(randc), 1.0)
         ce_s, p_s, pt_s, t_s = ce_s + ce_r, p_s + p_r, pt_s + pt_r, t_s + t_r
 
-    ce_per_mask = (ce_s / cfg.num_points).reshape(-1) * valid
-    dice_per_mask = (1.0 - (2.0 * pt_s + 1.0) / (p_s + t_s + 1.0)).reshape(-1) * valid
-    return {"loss_mask": ce_per_mask.sum() / num_masks,
-            "loss_dice": dice_per_mask.sum() / num_masks}
+    ce_per_mask = (ce_s / cfg.num_points).reshape(L, -1) * valid
+    dice_per_mask = (1.0 - (2.0 * pt_s + 1.0) / (p_s + t_s + 1.0)).reshape(L, -1) * valid
+    return {"loss_mask": ce_per_mask.sum(1), "loss_dice": dice_per_mask.sum(1)}
 
 
 def set_criterion(
@@ -147,7 +186,8 @@ def set_criterion(
     L+1 layers, aux layers first. `assign_fn` maps the (B, L+1, Q, G) costs
     to the (B, L+1, G) assignment. Traced (`utils.tracing`) as the spans
     "train.matcher_costs", "train.assign" and "train.losses" and the
-    counters "targets.valid" and "targets.slots" (`deep_supervision`).
+    counters "targets.valid", "targets.slots" and "targets.point_slots"
+    (`deep_supervision`).
     Returns (total_loss, {loss_ce, loss_mask, loss_dice, loss_ce_0, ...})."""
     tgt_labels, tgt_valid = targets["labels"], targets["valid"]
     tgt_nhwc = targets["masks"].float().permute(0, 2, 3, 1).contiguous()
@@ -157,15 +197,23 @@ def set_criterion(
             logits, masks, tgt_labels, tgt_nhwc, tgt_valid, points["match"][i],
             cost_class=cfg.class_weight, cost_mask=cfg.mask_weight, cost_dice=cfg.dice_weight)
 
-    def layer_losses(i, masks, asg, num_masks, sums):
-        # point-sampled sigmoid CE + dice on the matched masks (reference:
-        # criterion.py:827-883)
-        B, Q, h, w = masks.shape
-        G = tgt_valid.shape[1]
-        src = torch.gather(masks, 1, asg[:, :, None, None].expand(B, G, h, w)).float()
-        return point_mask_losses(src.permute(0, 2, 3, 1), tgt_nhwc,
-                                 tgt_valid.reshape(B * G).float(), num_masks, cfg,
-                                 points["cand"][i], points["rand"][i])
+    def step_targets(assignment):
+        nonlocal tgt_nhwc
+        n_valid, occupied = occupied_slots(tgt_valid)
+        tgt_loss = tgt_nhwc[..., :occupied].contiguous()  # (B, Hg, Wg, G')
+        tgt_nhwc = None  # the matching is done: free the all-slot copy
+        B = tgt_valid.shape[0]
+        valid = tgt_valid[:, :occupied].reshape(B * occupied).float()
+        # point-sampled sigmoid CE + dice on the matched masks of the
+        # occupied slots, every layer's at once (reference: criterion.py:827-883)
+        src = matched_masks(outputs, assignment[:, :, :occupied]).float()  # (L+1, B, G', h, w)
+        sums = point_mask_losses(src.permute(0, 1, 3, 4, 2), tgt_loss, valid, cfg,
+                                 points["cand"], points["rand"])
+
+        def layer_losses(i, masks, asg, num_masks, _):
+            return {name: s[i] / num_masks for name, s in sums.items()}
+
+        return StepTargets(layer_losses, n_valid, point_slots=B * occupied)
 
     return deep_supervision(outputs, tgt_labels, tgt_valid, cfg, assign_fn, layer_costs,
-                            lambda assignment: StepTargets(layer_losses), cfg.loss_weights)
+                            step_targets, cfg.loss_weights)

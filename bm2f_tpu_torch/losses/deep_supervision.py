@@ -6,9 +6,10 @@ layer, the aux layers first and the final layer last (so aux terms are
 named `name_0` .. `name_{L-1}`, as in the reference): the costs of all
 layers under the span "train.matcher_costs", ONE `assign_fn` call on them
 under "train.assign", and under "train.losses" the criterion's work of the
-step, the counters "targets.slots" and "targets.valid", the denominators,
-the class CE (`loss_labels`) and the criterion's terms of every layer, and
-the weighted total.
+step, the counters "targets.slots", "targets.valid" and (where the
+criterion point-samples its targets) "targets.point_slots", the
+denominators, the class CE (`loss_labels`) and the criterion's terms of
+every layer, and the weighted total.
 
 The batch is the GLOBAL batch, as in the JAX package's one SPMD step: under
 data parallelism each rank holds its rows of it, and every batch-wide
@@ -78,10 +79,12 @@ class StepTargets(NamedTuple):
     """A criterion's work of one step: `layer_losses(i, masks, assignment,
     num_masks, sums)` -> layer i's terms but its class CE, given the global
     values (at least 1) of the local `sums`; the valid targets' count
-    `n_valid` where the host has it."""
+    `n_valid`, read on the host; the target slots its point losses take,
+    `point_slots`, where it point-samples them."""
     layer_losses: Callable[..., Dict[str, torch.Tensor]]
+    n_valid: int
     sums: Tuple[torch.Tensor, ...] = ()
-    n_valid: Optional[int] = None
+    point_slots: Optional[int] = None
 
 
 def deep_supervision(
@@ -113,8 +116,9 @@ def deep_supervision(
     with tracing.span("train.losses"):
         step = step_targets(assignment)
         tracing.count("targets.slots", valid.numel())
-        if tracing.enabled():  # a device sum where the host has no count
-            tracing.count("targets.valid", valid.sum() if step.n_valid is None else step.n_valid)
+        tracing.count("targets.valid", step.n_valid)
+        if step.point_slots is not None:
+            tracing.count("targets.point_slots", step.point_slots)
         num_masks, ce, sums = label_denominators(layers, labels, valid, assignment, cfg,
                                                  *step.sums)
         losses: Dict[str, torch.Tensor] = {}

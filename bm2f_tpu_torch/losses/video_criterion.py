@@ -7,7 +7,10 @@ package computes it (bm2f_tpu/losses/video_criterion.py):
 - the mask losses take (instance, frame) pairs as their masks, with points
   drawn per frame, while `num_masks` stays the count of instances;
 - `num_masks` and the class CE's weight sums are the global batch's, as in
-  the image criterion (`deep_supervision`, the loop both share).
+  the image criterion (`deep_supervision`, the loop both share);
+- as in the image criterion, the mask losses take the occupied slots only
+  (`criterion.occupied_slots`), their matched masks chosen by (layer,
+  clip, query) row (`criterion.matched_masks`), every layer's at once.
 
 Every random point comes in through `points`, as `draw_points(cfg, L, B,
 generator, frames=T)` gives them, so that the tests can hand the criterion
@@ -20,7 +23,12 @@ from typing import Callable, Dict, Mapping, Tuple
 
 import torch
 
-from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, point_mask_losses
+from bm2f_tpu_torch.losses.criterion import (
+    SetCriterionConfig,
+    matched_masks,
+    occupied_slots,
+    point_mask_losses,
+)
 from bm2f_tpu_torch.losses.deep_supervision import StepTargets, deep_supervision
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import class_cost, pad_costs, point_costs
@@ -93,20 +101,21 @@ def video_set_criterion(
     def step_targets(assignment):
         nonlocal tgt_clip
         tgt_clip = None  # the matching is done: free the clip-major copy
-        tgt_frames = frame_major(tgt).contiguous()
+        n_valid, occupied = occupied_slots(tgt_valid)
+        tgt_frames = frame_major(tgt[:, :occupied]).contiguous()  # (B*T, Hg, Wg, G')
+        B, T = tgt.shape[0], tgt.shape[2]
+        # the validity weights of the (b, t, g) rows
+        valid = tgt_valid[:, None, :occupied].expand(B, T, occupied).reshape(-1).float()
+        # the matched (instance, frame) masks of the occupied slots of every
+        # layer, on points drawn per frame; `num_masks` counts the instances
+        src = matched_masks(outputs, assignment[:, :, :occupied]).float()  # (L+1, B, G', T, h, w)
+        sums = point_mask_losses(frame_major(src.flatten(0, 1)).unflatten(0, (-1, B * T)),
+                                 tgt_frames, valid, cfg, points["cand"], points["rand"])
 
-        def layer_losses(i, masks, asg, num_masks, sums):
-            # the matched (instance, frame) masks, on points drawn per frame;
-            # `num_masks` counts the instances
-            B, Q, T, h, w = masks.shape
-            G = tgt_valid.shape[1]
-            src = torch.gather(masks, 1,
-                               asg[:, :, None, None, None].expand(B, G, T, h, w)).float()
-            valid = tgt_valid[:, None, :].expand(B, T, G).reshape(B * T * G).float()  # (b, t, g)
-            return point_mask_losses(frame_major(src), tgt_frames, valid, num_masks, cfg,
-                                     points["cand"][i], points["rand"][i])
+        def layer_losses(i, masks, asg, num_masks, _):
+            return {name: s[i] / num_masks for name, s in sums.items()}
 
-        return StepTargets(layer_losses)
+        return StepTargets(layer_losses, n_valid, point_slots=B * occupied)
 
     return deep_supervision(outputs, tgt_labels, tgt_valid, cfg, assign_fn, layer_costs,
                             step_targets, cfg.loss_weights)

@@ -154,8 +154,8 @@ def weaksup_set_criterion(
                                                                 num_masks, **pair_kw)
             return terms
 
-        return StepTargets(layer_losses, (pair_w.sum(),) if use_pairwise else (),
-                           b_idx.shape[0])
+        return StepTargets(layer_losses, b_idx.shape[0],
+                           (pair_w.sum(),) if use_pairwise else ())
 
     weights = {"loss_ce": cfg.class_weight, "loss_mask_projection": projection_weight}
     if use_pairwise:

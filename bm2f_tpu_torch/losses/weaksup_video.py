@@ -211,7 +211,7 @@ def video_weaksup_set_criterion(
                     src, pairs_v, pv_v, warmup_factor, valid_sum=sums[-1])
             return terms
 
-        return StepTargets(layer_losses, tuple(extra), n)
+        return StepTargets(layer_losses, n, tuple(extra))
 
     weights = {"loss_ce": cfg.class_weight, "loss_mask_projection": projection_weight}
     if use_spat:

@@ -3308,16 +3308,33 @@ def oom_retry_path(dev):
         return torch.cuda.max_memory_allocated() - before, (out["pred_logits"].cpu(),
                                                            out["pred_masks"].cpu())
 
+    def take_free_blocks(filler, total):
+        """Fill the free blocks of the segments the allocator keeps (pinned
+        by live blocks, no `empty_cache` releases them) under a cap at what
+        it reserves: no cap counts them, and they can hold a whole forward
+        (4.08 GiB of them at this phase, after the earlier phases)."""
+        torch.cuda.set_per_process_memory_fraction(torch.cuda.memory_reserved() / total)
+        size = 2**30
+        while size >= 2**20:
+            try:
+                filler.append(torch.empty(size, dtype=torch.uint8, device=dev))
+            except torch.OutOfMemoryError:
+                size //= 2
+        log("oom_retry_free_blocks", taken_gib=f"{sum(t.numel() for t in filler) / 2**30:.3f}")
+
     full_peak, want = forward_peak(OOM_BATCH)
     half_peak, _ = forward_peak(OOM_BATCH // 2)
     torch.cuda.empty_cache()
-    base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     total = torch.cuda.get_device_properties(dev).total_memory
+    filler = []
+    take_free_blocks(filler, total)
+    base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     log("oom_retry_setup", batch=OOM_BATCH, bucket=OOM_BUCKET,
         full_peak_gib=f"{full_peak / 2**30:.3f}", half_peak_gib=f"{half_peak / 2**30:.3f}",
         allocated_gib=f"{base / 2**30:.3f}", reserved_gib=f"{reserved / 2**30:.3f}")
     # The cap counts what the allocator reserves: what it keeps now (the
-    # weights, and the pool of kept tables) plus a share of the half's peak.
+    # weights, the pool of kept tables and the filled free blocks) plus a
+    # share of the half's peak.
     # cuDNN takes a smaller workspace when memory is short, so the full
     # batch's measured peak is not what it needs: the share goes down until
     # the batch no longer fits (its halves, by construction, still do).
@@ -3346,6 +3363,7 @@ def oom_retry_path(dev):
         capped = port_eval.run_eval(cfg, model, "coco_2017_val", ims_per_batch=OOM_BATCH)
         eval_splits = retry_if_oom.splits
         torch.cuda.empty_cache()
+        take_free_blocks(filler, total)
         torch.cuda.set_per_process_memory_fraction(
             (torch.cuda.memory_reserved() + 2**26) / total)
         try:
@@ -3355,6 +3373,7 @@ def oom_retry_path(dev):
         else:
             raise AssertionError("an image that cannot fit did not raise")
     finally:
+        filler.clear()
         torch.cuda.set_per_process_memory_fraction(1.0)
         torch.cuda.empty_cache()
     if "batch 1" not in batch1:

@@ -6,7 +6,13 @@ their gradients with respect to the logits and masks of every layer.
 Sizes: 3 aux layers + the final one, B=2, 10 queries, 80 classes, 16x16
 mask logits, 4 targets per image at 64x64 (the last one of image 0 is
 padding), the default 112*112 points. Tolerance rtol 1e-5: f32 sums of up to
-~37k terms in another order."""
+~37k terms in another order.
+
+Then the port's own padding: `set_criterion` takes its mask losses over the
+occupied slots only; at G = 100 on prefix, holed, empty and full validity,
+its losses and gradients are those of the all-slot formulation (every
+slot's matched mask by `torch.gather`, padding weighted by 0) on the same
+points and assignment."""
 
 import jax
 import jax.numpy as jnp
@@ -19,11 +25,17 @@ from bm2f_tpu.losses.criterion import set_criterion as jax_set_criterion
 from bm2f_tpu.matching.hungarian import hungarian_assign as jax_hungarian_assign
 from bm2f_tpu.matching.matcher import hungarian_matcher_costs as jax_matcher_costs
 from bm2f_tpu.ops.sampling import point_sample as jax_point_sample
-from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, set_criterion
+from bm2f_tpu_torch.losses.criterion import (
+    SetCriterionConfig,
+    draw_points,
+    point_mask_losses,
+    set_criterion,
+)
+from bm2f_tpu_torch.losses.deep_supervision import StepTargets, deep_supervision
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.matching.matcher import PAD_COST, hungarian_matcher_costs
 from bm2f_tpu_torch.ops.sampling import point_sample
-from torch_port_utils import jax_criterion_points
+from torch_port_utils import compare_with_all_slots, jax_criterion_points
 
 L_AUX, B, Q, K, G, h, Hg = 3, 2, 10, 80, 4, 16, 64
 RTOL = dict(rtol=1e-5, atol=1e-6)
@@ -134,3 +146,65 @@ def test_criterion_gradients_match_jax(criterion_results, key):
     assert np.abs(ref).max() > 0
     np.testing.assert_allclose(leaves[key].grad.numpy(), ref,
                                rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+# -- the occupied slots against the all-slot formulation ------------------------------------
+
+G_PAD, Q_PAD = 100, 100
+# (image 0's valid slots, image 1's, G')
+OCCUPANCY = {
+    "prefix": ([0, 1, 2], [0], 3),
+    "holes": ([0, 5, 17], [5], 18),
+    "none": ([], [], 0),
+    "all": (list(range(G_PAD)), list(range(G_PAD)), G_PAD),
+}
+
+
+def padded_case(occupancy, seed=4):
+    """Outputs of Q_PAD queries and G_PAD target slots holding the valid
+    targets of `occupancy` (the padding slots hold masks and labels too)."""
+    g = torch.Generator().manual_seed(seed)
+    outputs = {
+        "pred_logits": torch.randn(B, Q_PAD, K + 1, generator=g) * 2,
+        "pred_masks": torch.randn(B, Q_PAD, h, h, generator=g) * 3,
+        "aux_logits": torch.randn(L_AUX, B, Q_PAD, K + 1, generator=g) * 2,
+        "aux_masks": torch.randn(L_AUX, B, Q_PAD, h, h, generator=g) * 3,
+    }
+    cells = torch.rand(B, G_PAD, Hg // 8, Hg // 8, generator=g) > 0.6
+    valid = torch.zeros(B, G_PAD, dtype=torch.bool)
+    for b, slots in enumerate(occupancy[:2]):
+        valid[b, slots] = True
+    targets = {"labels": torch.randint(0, K, (B, G_PAD), generator=g),
+               "masks": cells.float().repeat_interleave(8, 2).repeat_interleave(8, 3),
+               "valid": valid}
+    return outputs, targets
+
+
+def all_slot_criterion(outputs, targets, cfg, points, assignment):
+    """The mask criterion over every slot under a given (B, L+1, G)
+    assignment: each slot's matched mask by `torch.gather` over its pixels,
+    the padding slots' terms weighted by 0."""
+    valid = targets["valid"]
+    tgt_nhwc = targets["masks"].float().permute(0, 2, 3, 1).contiguous()
+
+    def layer_losses(i, masks, asg, num_masks, sums):
+        Bm, Qm, hm, wm = masks.shape
+        G = valid.shape[1]
+        src = torch.gather(masks, 1, asg[:, :, None, None].expand(Bm, G, hm, wm)).float()
+        sums = point_mask_losses(src.permute(0, 2, 3, 1)[None], tgt_nhwc,
+                                 valid.reshape(-1).float(), cfg, points["cand"][i][None],
+                                 points["rand"][i][None])
+        return {name: s[0] / num_masks for name, s in sums.items()}
+
+    return deep_supervision(outputs, targets["labels"], valid, cfg, lambda c: assignment,
+                            lambda i, logits, masks: torch.zeros(B, Q_PAD, G_PAD),
+                            lambda a: StepTargets(layer_losses, int(valid.sum())), cfg.loss_weights)
+
+
+@pytest.mark.parametrize("occupancy", list(OCCUPANCY))
+def test_criterion_over_occupied_slots_equals_all_slots(occupancy):
+    outputs, targets = padded_case(OCCUPANCY[occupancy])
+    cfg = SetCriterionConfig(num_classes=K, num_points=2000)
+    points = draw_points(cfg, L_AUX + 1, B, torch.Generator().manual_seed(9))
+    compare_with_all_slots(set_criterion, all_slot_criterion, outputs, targets, cfg, points,
+                           OCCUPANCY[occupancy][2])

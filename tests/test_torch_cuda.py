@@ -516,6 +516,61 @@ def test_train_step_is_bitwise_repeatable_under_deterministic_algorithms(dtype):
     assert not differing, differing[:8]
 
 
+@pytest.mark.cuda
+def test_mask_criterion_at_the_cells_padding_matches_the_cpu_and_repeats():
+    """`set_criterion` at the train cells' padding: G = 100 slots of which
+    8 and 3 hold targets (G' = 8), 100 queries, 256x256 mask logits against
+    1024x1024 targets, the default 112*112 points, 3 aux layers, in the
+    train step's scopes (f32 without TF32, deterministic algorithms): on the
+    card, under the CPU's assignment and on its points, every term and the
+    gradients of the mask logits equal the CPU's (rtol 1e-5, atol 1e-5 of
+    the largest), and a second run repeats them bitwise."""
+    from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, draw_points, set_criterion
+    from bm2f_tpu_torch.matching.hungarian import assign
+    from bm2f_tpu_torch.utils.precision import deterministic_scope, f32_scope
+
+    dev = require_cuda()
+    B, Q, G, K, L, h, Hg = 2, 100, 100, 80, 4, 256, 1024
+    g = torch.Generator().manual_seed(0)
+    outputs = {"pred_logits": torch.randn(B, Q, K + 1, generator=g) * 2,
+               "pred_masks": torch.randn(B, Q, h, h, generator=g) * 3,
+               "aux_logits": torch.randn(L - 1, B, Q, K + 1, generator=g) * 2,
+               "aux_masks": torch.randn(L - 1, B, Q, h, h, generator=g) * 3}
+    valid = torch.zeros(B, G, dtype=torch.bool)
+    valid[0, :8] = True
+    valid[1, :3] = True
+    cells = torch.rand(B, G, Hg // 64, Hg // 64, generator=g) > 0.6
+    targets = {"labels": torch.randint(0, K, (B, G), generator=g),
+               "masks": cells.float().repeat_interleave(64, 2).repeat_interleave(64, 3),
+               "valid": valid}
+    cfg = SetCriterionConfig(num_classes=K)
+    points = draw_points(cfg, L, B, g)
+    seen = {}
+
+    def run(device, assign_fn):
+        leaves = {k: v.to(device, copy=True).requires_grad_(True) for k, v in outputs.items()}
+        with f32_scope("float32"), deterministic_scope():
+            total, losses = set_criterion(
+                leaves, {k: v.to(device) for k, v in targets.items()}, cfg,
+                {k: v.to(device) for k, v in points.items()}, assign_fn=assign_fn)
+            total.backward()
+        got = {k: v.detach().cpu() for k, v in losses.items()}
+        got.update({k: leaves[k].grad.cpu() for k in ("pred_masks", "aux_masks")})
+        return got
+
+    def cpu_assign(c):
+        seen["asg"] = assign(c)
+        return seen["asg"]
+
+    want = run("cpu", cpu_assign)
+    on_card = [run(dev, lambda c: seen["asg"].to(dev)) for _ in range(2)]
+    assert want["pred_masks"].abs().max() > 0 and want["aux_masks"].abs().max() > 0
+    for k, v in want.items():
+        np.testing.assert_allclose(on_card[0][k].numpy(), v.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(v.abs().max()), err_msg=k)
+        assert torch.equal(on_card[0][k], on_card[1][k]), k
+
+
 @pytest.fixture
 def global_tf32():
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)

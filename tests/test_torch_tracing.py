@@ -10,10 +10,12 @@ import pytest
 import torch
 
 from bm2f_tpu_torch.config import get_config
+from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, draw_points, set_criterion
 from bm2f_tpu_torch.predict import Predictor
 from bm2f_tpu_torch.tools.profile_request import STEPS, request_steps
 from bm2f_tpu_torch.train.trainer import STAGES, Trainer, synthetic_batch
 from bm2f_tpu_torch.utils import tracing
+from port_bench import manifest, spans
 
 # a tiny head on a depth-14 ResNet: one encoder and two decoder layers,
 # six queries, 64 points
@@ -204,10 +206,52 @@ def test_a_marked_step_sees_the_six_stages_and_counts_the_targets(preset, weak, 
         assert costs == ["costs.projection", "costs.pairwise"] * (layers * images * frames)
     else:
         assert costs == []
-    # every pairwise cost counts a call; on the CPU none launches the kernel
-    pairwise = {"costs.pairwise_calls": layers * images * frames} if weak else {}
+    # every pairwise cost counts a call; on the CPU none launches the kernel;
+    # the mask criteria count the slots they point-sample, B x G' (G' = 1 +
+    # the highest valid slot)
+    if weak:
+        extra = {"costs.pairwise_calls": layers * images * frames}
+    else:
+        occupied = 1 + int(b["valid"].any(0).nonzero().max())
+        extra = {"targets.point_slots": images * occupied}
     assert root["counters"] == {"targets.slots": b["valid"].numel(),
-                                "targets.valid": int(b["valid"].sum()), **pairwise}
+                                "targets.valid": int(b["valid"].sum()), **extra}
+
+
+def test_the_mask_criterion_counts_its_point_slots_once_a_step(monkeypatch):
+    """One step of `set_criterion` counts B x G' point slots, G' = 1 + the
+    highest valid slot in any image (holes included); the reader of
+    `train.point_slots_pct` gives 100 x their sum over the slots' sum, over
+    the steps that count them, and None without them."""
+    B, Q, G, K = 2, 20, 20, 5
+    g = torch.Generator().manual_seed(0)
+    outputs = {"pred_logits": torch.randn(B, Q, K + 1, generator=g),
+               "pred_masks": torch.randn(B, Q, 8, 8, generator=g),
+               "aux_logits": torch.randn(1, B, Q, K + 1, generator=g),
+               "aux_masks": torch.randn(1, B, Q, 8, 8, generator=g)}
+    valid = torch.zeros(B, G, dtype=torch.bool)
+    valid[0, [0, 5, 17]] = True
+    valid[1, 5] = True
+    targets = {"labels": torch.randint(0, K, (B, G), generator=g),
+               "masks": (torch.rand(B, G, 16, 16, generator=g) > 0.5).float(), "valid": valid}
+    cfg = SetCriterionConfig(num_classes=K, num_points=64)
+    points = draw_points(cfg, 2, B, g)
+    with tracing.collect():
+        with tracing.span("train.step"):
+            set_criterion(outputs, targets, cfg, points)
+    assert tracing.records()[-1]["counters"] == {
+        "targets.slots": B * G, "targets.valid": 4, "targets.point_slots": B * 18}
+
+    steps = [{"name": "train.step", "spans": [], "counters": c} for c in (
+        {"targets.slots": 200, "targets.valid": 4, "targets.point_slots": 36},
+        {"targets.slots": 200, "targets.valid": 3, "targets.point_slots": 4})]
+    monkeypatch.setattr(spans, "roots", lambda name: steps if name == "train.step" else [])
+    read = manifest.reader("train.point_slots_pct")
+    assert read({"kind": "train"}) == 100.0 * 40 / 400
+    assert read({"kind": "serve"}) is None
+    for step in steps:
+        del step["counters"]["targets.point_slots"]
+    assert read({"kind": "train"}) is None
 
 
 def require_cuda() -> torch.device:

@@ -18,6 +18,10 @@ values near 0, as tests/test_torch_criterion.py. The step goes through the
 network first: its losses within 1e-4 relative and each parameter's
 gradient within a norm-relative 1e-3, as the image step's
 (tests/test_torch_train.py).
+
+The port's own padding, as in tests/test_torch_criterion.py: at G = 100
+with holes in the validity, and with none valid, the losses and gradients
+over the occupied slots are the all-slot formulation's.
 """
 
 import jax
@@ -36,16 +40,24 @@ from bm2f_tpu.models.maskformer import normalize_images as jax_normalize_images
 from bm2f_tpu.train.trainer import criterion_config as jax_criterion_config
 from bm2f_tpu.video import build_video_model as jax_build_video_model
 from bm2f_tpu_torch.config import get_config
-from bm2f_tpu_torch.losses.criterion import SetCriterionConfig
+from bm2f_tpu_torch.losses.criterion import SetCriterionConfig, draw_points, point_mask_losses
+from bm2f_tpu_torch.losses.deep_supervision import StepTargets, deep_supervision
 from bm2f_tpu_torch.losses.video_criterion import (
     clip_channels_last,
+    frame_major,
     video_matcher_costs,
     video_set_criterion,
 )
 from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.train.trainer import Trainer
 from bm2f_tpu_torch.utils.convert_weights import jax_tree_to_numpy, jax_variables_to_state_dict
-from torch_port_utils import SMALL, jax_criterion_points, randomize, to_numpy_tree
+from torch_port_utils import (
+    SMALL,
+    compare_with_all_slots,
+    jax_criterion_points,
+    randomize,
+    to_numpy_tree,
+)
 
 L_AUX, B, Q, K, G, T, h, Hg, P = 2, 2, 8, 40, 3, 3, 16, 64, 2000
 RTOL = dict(rtol=1e-5, atol=1e-6)
@@ -171,6 +183,64 @@ def test_padding_targets_change_no_loss():
     b = video_set_criterion(_torch(outputs), garbage, ccfg, points)[1]
     for k in a:
         assert a[k].item() == b[k].item(), k
+
+
+# -- the occupied slots against the all-slot formulation ------------------------------------
+
+G_PAD, Q_PAD = 100, 100
+# (clip 0's valid slots, clip 1's, G')
+OCCUPANCY = {"holes": ([0, 5, 17], [5], 18), "none": ([], [], 0)}
+
+
+def padded_clips(occupancy, seed=4):
+    """Outputs of Q_PAD queries and G_PAD target slots of T frames holding
+    the valid targets of `occupancy` (the padding slots hold masks too)."""
+    g = torch.Generator().manual_seed(seed)
+    outputs = {
+        "pred_logits": torch.randn(B, Q_PAD, K + 1, generator=g) * 2,
+        "pred_masks": torch.randn(B, Q_PAD, T, h, h, generator=g) * 3,
+        "aux_logits": torch.randn(L_AUX, B, Q_PAD, K + 1, generator=g) * 2,
+        "aux_masks": torch.randn(L_AUX, B, Q_PAD, T, h, h, generator=g) * 3,
+    }
+    cells = torch.rand(B, G_PAD, T, Hg // 8, Hg // 8, generator=g) > 0.6
+    valid = torch.zeros(B, G_PAD, dtype=torch.bool)
+    for b, slots in enumerate(occupancy[:2]):
+        valid[b, slots] = True
+    targets = {"labels": torch.randint(0, K, (B, G_PAD), generator=g),
+               "masks": cells.float().repeat_interleave(8, 3).repeat_interleave(8, 4),
+               "valid": valid}
+    return outputs, targets
+
+
+def all_slot_video_criterion(outputs, targets, cfg, points, assignment):
+    """The video mask criterion over every slot under a given assignment:
+    each slot's matched (instance, frame) masks by `torch.gather` over
+    their pixels, the padding slots' terms weighted by 0."""
+    valid = targets["valid"]
+    tgt_frames = frame_major(targets["masks"].float()).contiguous()
+
+    def layer_losses(i, masks, asg, num_masks, sums):
+        Bm, Qm, Tm, hm, wm = masks.shape
+        G = valid.shape[1]
+        src = torch.gather(masks, 1,
+                           asg[:, :, None, None, None].expand(Bm, G, Tm, hm, wm)).float()
+        w = valid[:, None, :].expand(Bm, Tm, G).reshape(-1).float()
+        sums = point_mask_losses(frame_major(src)[None], tgt_frames, w, cfg,
+                                 points["cand"][i][None], points["rand"][i][None])
+        return {name: s[0] / num_masks for name, s in sums.items()}
+
+    return deep_supervision(outputs, targets["labels"], valid, cfg, lambda c: assignment,
+                            lambda i, logits, masks: torch.zeros(B, Q_PAD, G_PAD),
+                            lambda a: StepTargets(layer_losses, int(valid.sum())), cfg.loss_weights)
+
+
+@pytest.mark.parametrize("occupancy", list(OCCUPANCY))
+def test_video_criterion_over_occupied_slots_equals_all_slots(occupancy):
+    outputs, targets = padded_clips(OCCUPANCY[occupancy])
+    cfg = SetCriterionConfig(num_classes=K, num_points=P)
+    points = draw_points(cfg, L_AUX + 1, B, torch.Generator().manual_seed(9), frames=T)
+    compare_with_all_slots(video_set_criterion, all_slot_video_criterion, outputs, targets,
+                           cfg, points, OCCUPANCY[occupancy][2])
 
 
 # -- one SMALL video step -----------------------------------------------------------------

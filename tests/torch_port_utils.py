@@ -1,7 +1,8 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): the
 SMALL model overrides, the JAX-tree -> port-state_dict mapping for
 sub-modules, seeded weight perturbation, the JAX criterion's own random
-points in the port's layout, and the JAX package's data-parallel step."""
+points in the port's layout, the JAX package's data-parallel step, and a
+mask criterion over its occupied slots against its all-slot formulation."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import jax
 import numpy as np
 import torch
 
+from bm2f_tpu_torch.losses.criterion import occupied_slots
+from bm2f_tpu_torch.matching.hungarian import assign
 from bm2f_tpu_torch.utils.convert_weights import jax_tree_to_numpy
 
 # One intra-op thread per test process. The suite runs in several pytest
@@ -143,3 +146,41 @@ def jax_global_step(config, overrides, variables, batch, step=0, key=11, mesh=(2
     new_params = jax_tree_to_numpy({"params": jax.device_get(new.params)},
                                    pixel_decoder=pixel_decoder)
     return {k: float(v) for k, v in metrics.items()}, new_params, step_rng, jcfg
+
+
+def compare_with_all_slots(criterion, reference, outputs, targets, cfg, points, expect):
+    """`criterion` (under the exact assignment) against `reference`
+    (under the same assignment): every term and the gradients of every
+    output, rtol 1e-5 and atol 1e-6; with no valid target, the mask terms
+    and their gradients exactly 0 and the class CE bitwise the reference's."""
+    n_valid, occupied = occupied_slots(targets["valid"])
+    assert (n_valid, occupied) == (int(targets["valid"].sum()), expect)
+    seen = {}
+
+    def tassign(c):
+        seen["asg"] = assign(c)
+        return seen["asg"]
+
+    runs = []
+    for run in (lambda o: criterion(o, targets, cfg, points, assign_fn=tassign),
+                lambda o: reference(o, targets, cfg, points, seen["asg"])):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in outputs.items()}
+        total, losses = run(leaves)
+        total.backward()
+        runs.append((total, losses, {k: v.grad for k, v in leaves.items()}))
+    (total, losses, grads), (rtotal, rlosses, rgrads) = runs
+    assert set(losses) == set(rlosses)
+    for k, v in rlosses.items():
+        np.testing.assert_allclose(losses[k].item(), v.item(), err_msg=k, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(total.item(), rtotal.item(), rtol=1e-5, atol=1e-6)
+    for k, v in rgrads.items():
+        np.testing.assert_allclose(grads[k].numpy(), v.numpy(), err_msg=k, rtol=1e-5, atol=1e-6)
+    if occupied == 0:
+        for k, v in losses.items():
+            if k.startswith("loss_ce"):
+                assert v.item() == rlosses[k].item(), k
+            else:
+                assert v.item() == 0.0, k
+        assert not grads["pred_masks"].any() and not grads["aux_masks"].any()
+    else:
+        assert grads["pred_masks"].abs().max() > 0 and grads["aux_masks"].abs().max() > 0
